@@ -12,10 +12,8 @@
 // is read once, byte by byte, and the model state never leaves the SM.
 //
 // Design: one thread per chain, the scalar shape of native/src/jn_ans.cpp
-// decode_chain.  A chain's model state (the 256-entry uint16 interior-CDF
-// bank of the 9 models, 253 quasi counts, 6 seen and 6 threshold counters:
-// ~1.6 KB) lives in dynamic shared memory laid out [entry][thread], so the
-// 32 threads of a block touching the same entry hit 32 different banks.
+// decode_chain.  A chain's model state lives in dynamic shared memory laid
+// out [entry][thread] (rans_model.cuh, shared with K4's encode pass).
 // Symbols are found by binary search over each model's segment (the bank
 // is strictly increasing within a segment), and the quasi rescale divides
 // in native uint32.  None of the TPU kernel's MXU workarounds (bf16 byte
@@ -23,22 +21,11 @@
 // the XLA-side payload window) are needed.  Symbols are written straight
 // into the per-chunk slab layout (chunk g's symbol j at column j), so the
 // consumer needs no lane undeal.
-#include "common.cuh"
+#include "rans_model.cuh"
+
+using namespace jt_model;
 
 namespace {
-
-constexpr int kThreads = 32;      // chains per block
-constexpr int kBank = 256;        // interior CDF entries of the 9 models
-constexpr int kQCounts = 253;     // quasi counts (sum of the 6 quasi alphabets)
-constexpr int kNQ = 6;            // quasi models (exponents 2..7)
-constexpr uint32_t kRansL = 1u << 23;
-constexpr int kProbScale = 1 << 16;
-constexpr int kUpdateRate = 64 << 10;
-constexpr int kRate = 5;
-
-constexpr size_t kSmemBytes =
-    size_t(kThreads) * (kBank * sizeof(uint16_t) + kQCounts * sizeof(int32_t) +
-                        2 * kNQ * sizeof(int32_t));
 
 __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
     const uint8_t* __restrict__ buf, int64_t n,
@@ -51,43 +38,14 @@ __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
     const int32_t* __restrict__ exp_base,    // (8,) EXPONENT[e]
     int32_t* __restrict__ syms, uint8_t* __restrict__ ok) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* bank = reinterpret_cast<uint16_t*>(smem);
-  int32_t* qf = reinterpret_cast<int32_t*>(bank + kBank * kThreads);
-  int32_t* qseen = qf + kQCounts * kThreads;
-  int32_t* qexp = qseen + kNQ * kThreads;
+  __shared__ Tables tb;
+  load_tables(tb, exp_mix, ma_mix, boff, exp_base);
 
-  __shared__ int32_t s_mix[8 * 7], s_ma[4], s_boff[10], s_base[8],
-      s_qoff[kNQ];
   const int t = threadIdx.x;
-  for (int k = t; k < 8 * 7; k += kThreads) s_mix[k] = exp_mix[k];
-  if (t < 4) s_ma[t] = ma_mix[t];
-  if (t < 10) s_boff[t] = boff[t];
-  if (t < 8) s_base[t] = exp_base[t];
-  __syncthreads();
-  if (t == 0) {
-    // quasi model k's alphabet is its interior width + 1
-    int q = 0;
-    for (int k = 0; k < kNQ; ++k) {
-      s_qoff[k] = q;
-      q += s_boff[4 + k] - s_boff[3 + k] + 1;
-    }
-  }
-  __syncthreads();
-
   const int c = blockIdx.x * kThreads + t;
   if (c >= num_chains) return;
-
-#define BANK(k) bank[(k) * kThreads + t]
-#define QF(k) qf[(k) * kThreads + t]
-#define QSEEN(k) qseen[(k) * kThreads + t]
-#define QEXP(k) qexp[(k) * kThreads + t]
-
-  for (int k = 0; k < kBank; ++k) BANK(k) = static_cast<uint16_t>(bank_init[k]);
-  for (int k = 0; k < kQCounts; ++k) QF(k) = 0;
-  for (int k = 0; k < kNQ; ++k) {
-    QSEEN(k) = 0;
-    QEXP(k) = 8;
-  }
+  State st(smem, t);
+  st.init(bank_init);
 
   // payload bytes past the buffer read as the clamped gather of the
   // reference does: the index clamps to the last byte
@@ -120,15 +78,15 @@ __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
   // model `s` segment search: m = number of interior cum entries <= rc,
   // low = cum[m], freq = cum[m + 1] - cum[m] (cum[0] = 0, cum[alpha] = 2^16)
   auto find = [&](int s, uint32_t rc, int& m, uint32_t& lo, uint32_t& fq) {
-    const int b0 = s_boff[s], w = s_boff[s + 1] - b0;
+    const int b0 = tb.boff[s], w = tb.boff[s + 1] - b0;
     int a = 0, b = w;
     while (a < b) {
       const int mid = (a + b) >> 1;
-      if (BANK(b0 + mid) <= rc) a = mid + 1; else b = mid;
+      if (st.bank(b0 + mid) <= rc) a = mid + 1; else b = mid;
     }
     m = a;
-    lo = a > 0 ? BANK(b0 + a - 1) : 0u;
-    const uint32_t hi = a < w ? BANK(b0 + a) : uint32_t(kProbScale);
+    lo = a > 0 ? st.bank(b0 + a - 1) : 0u;
+    const uint32_t hi = a < w ? st.bank(b0 + a) : uint32_t(kProbScale);
     fq = hi - lo;
   };
 
@@ -160,54 +118,12 @@ __global__ void __launch_bounds__(kThreads) rans_decode_kernel(
     R[0] = R[1]; R[1] = R[2]; R[2] = R[3]; R[3] = x;
     ptr += kb;
 
-    // adaptive CDF mixing (int32, arithmetic >> 5) of the exponent model
-    for (int j = 0; j < 7; ++j) {
-      const int b = BANK(j);
-      BANK(j) = static_cast<uint16_t>(b + ((s_mix[e * 7 + j] - b) >> kRate));
-    }
-    if (e < 2) {
-      const int b = BANK(7 + e);
-      const int mix = s_ma[e * 2 + min(m, 1)];
-      BANK(7 + e) = static_cast<uint16_t>(b + ((mix - b) >> kRate));
-    } else {
-      const int k = e - 2;
-      QF(s_qoff[k] + m) += 16;  // PROB_BITS per symbol (model.cpp)
-      const int seen = QSEEN(k) + 1;
-      QSEEN(k) = seen;
-      if (seen > QEXP(k)) {
-        // quasi rescale (model.cpp:160-204, unsigned stretch)
-        const int b0 = s_boff[3 + k];
-        const int alpha = s_boff[4 + k] - b0 + 1;
-        const int q0 = s_qoff[k];
-        int32_t total = 0;
-        for (int j = 0; j < alpha; ++j) total += QF(q0 + j);
-        int logv = 0;
-        for (int it = 0; it < 21; ++it)
-          logv += ((total >> logv) + alpha) > kProbScale;
-        uint32_t t2 = 0;
-        for (int j = 0; j < alpha; ++j) t2 += uint32_t((QF(q0 + j) >> logv) + 1);
-        int32_t qsum = 0;
-        for (int j = 0; j < alpha; ++j)
-          qsum += int32_t((uint32_t((QF(q0 + j) >> logv) + 1) << 16) / t2);
-        int32_t cum = kProbScale - qsum;  // remainder folded into symbol 0
-        for (int j = 0; j < alpha - 1; ++j) {
-          cum += int32_t((uint32_t((QF(q0 + j) >> logv) + 1) << 16) / t2);
-          BANK(b0 + j) = static_cast<uint16_t>(cum & 0xFFFF);
-        }
-        for (int j = 0; j < alpha; ++j) QF(q0 + j) = 0;
-        QSEEN(k) = 0;
-        QEXP(k) = QEXP(k) < kUpdateRate ? QEXP(k) << 1 : kUpdateRate;
-      }
-    }
-    out[int64_t(i) * stride] = s_base[e] + m;
+    st.update(tb, e, m);
+    out[int64_t(i) * stride] = tb.base[e] + m;
   }
   for (int i = steps; i < max_rlen; ++i) out[int64_t(i) * stride] = 0;
   ok[c] = (rl < 0) ||
           (R[0] == kRansL && R[1] == kRansL && R[2] == kRansL && R[3] == kRansL);
-#undef BANK
-#undef QF
-#undef QSEEN
-#undef QEXP
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels.
 
-All sources under csrc/ compile with nvcc into one shared library with a
-plain C interface, build/torch_kernels/libjamtorch.so, at first use.  A
-digest of the sources sits beside it; a changed source rebuilds.  The
+Every source under csrc/ compiles with its own nvcc, all started together,
+and the objects link into one shared library with a plain C interface,
+build/torch_kernels/libjamtorch.so, at first use.  A digest of the sources
+sits beside it; a changed source rebuilds.  The
 library is bound with ctypes: pointers and the stream go as c_void_p (a
 plain int would be cut to 32 bits).  Nothing here runs at import time, so
 the CPU tests can import every module of the package.
@@ -21,7 +22,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB = os.path.join(BUILD_DIR, "libjamtorch.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,9 @@ _SIGNATURES = {
                        _P, _P],
     "jt_rank_decode": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
     "jt_ibwt_chase": [_P, _P, _P, ctypes.c_int32, _I, ctypes.c_int32, _P, _P],
+    "jt_model_pairs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "jt_rans_encode": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "jt_rank_encode": [_P, _I64, _P, _I, _P, _P, _P],
 }
 
 
@@ -76,15 +80,34 @@ def build() -> dict:
                     log = f.read()
             return {"built": False, "seconds": 0.0, "log": log}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    srcs = [src for src in _sources() if src.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [os.path.basename(src) for src, p in zip(srcs, procs)
+              if p.returncode != 0]
+    tmp = f"{LIB}.{tag}"
+    if not failed:
+        res = subprocess.run(
+            [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs],
+            capture_output=True, text=True)
+        log += res.stdout + res.stderr
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
     os.replace(tmp, LIB)
     with open(stamp + ".tmp", "w") as f:
         f.write(digest)

@@ -1,0 +1,253 @@
+"""The per-block encode chain on the device, stage by stage.
+
+Counterpart of jampack_tpu/kernels/encode_stages.py in the store
+configuration (-m3 -f0, Lpx skipped):
+
+    LZ store framing -> -f0 filter headers -> LZ store framing
+    -> forward BWT + anchors -> per chunk: SRC rank -> RLE0 -> lane deal
+    -> per chain: model pass -> reverse interleaved rANS
+
+Every stage length is a function of the block length alone.  Tensors are
+sized by those lengths (the JAX chain's pow2 capacities bound its jit
+variants; PyTorch runs eagerly).  The serial walks are hand-written CUDA
+kernels: the SRC rank encode (K6, here), the model pass (K4) and the
+reverse rANS (K5) in rans_encode.py; the rest is plain PyTorch.
+"""
+
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from jampack_tpu.format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
+from jampack_tpu.stages.lz77 import write_token
+
+from ._build import Kernel, ptr, stream_of
+from .rans_encode import model_pairs_wide, rans_reverse_encode_wide
+from .sa import forward_bwt
+
+RANK_KERNEL = Kernel("rank_encode", "jt_rank_encode",
+                     "jampack_tpu_torch/csrc/rank_encode.cu",
+                     "jampack_tpu/kernels/encode_stages.py:69")
+
+_FBS = FILTER_BLOCK_SIZE
+END_TOKEN = np.frombuffer(write_token(LZ_MIN_MATCH, LZ_MIN_MATCH, 0),
+                          np.uint8).copy()
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# RLE0 encode (rle.cpp:22-47): scans and one masked index_put_
+
+
+def rle0_encode(data: torch.Tensor, olens: torch.Tensor):
+    """data: (C, W) uint8 rows; olens: (C,) int32 valid lengths.
+    Returns (syms (C, W) uint16, rlens (C,) int32).
+
+    A run of R zeros emits the binary expansion of R+1 without its leading
+    bit, the j-th bit attributed to the run's j-th zero; a nonzero byte v
+    emits v+1.  Run bounds come from a reverse cummin and a cummax, and one
+    masked index_put_ lays out every row's symbols (rle0_encode_core, one
+    row per chunk)."""
+    C, W = data.shape
+    dev = data.device
+    idx = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    valid = idx < olens[:, None]
+    v = data.to(torch.int32)
+    z = valid & (v == 0)
+    no = torch.zeros(C, 1, dtype=torch.bool, device=dev)
+    run_start = z & ~torch.cat([no, z[:, :-1]], 1)
+    run_end = z & ~torch.cat([z[:, 1:], no], 1)
+    endi = torch.cummin(torch.where(run_end, idx, W).flip(1), 1).values.flip(1)
+    starti = torch.cummax(torch.where(run_start, idx, -1), 1).values
+    lv = endi - starti + 2  # run length + 1 (>= 2 at zero positions)
+    msb = torch.zeros_like(lv)
+    for k in range(1, 25):  # bit_length(lv) - 1; chunks are < 2^24 bytes
+        msb += (lv >= (1 << k)).int()
+    j = idx - starti
+    nonzero = valid & (v > 0)
+    emit = nonzero | (z & (j < msb))
+    cnt = emit.int()
+    csum = torch.cumsum(cnt, 1, dtype=torch.int32)
+    pos = csum - cnt
+    rlens = csum[:, -1] if W else torch.zeros(C, dtype=torch.int32, device=dev)
+    bit = (lv >> (msb - 1 - j).clamp(0, 31)) & 1
+    val = torch.where(nonzero, v + 1, bit)
+    rows = torch.arange(C, device=dev)[:, None] * W
+    flat = torch.where(emit, rows + pos, C * W).reshape(-1)
+    out = torch.zeros(C * W + 1, dtype=torch.int32, device=dev)
+    out.index_put_((flat,), val.reshape(-1))
+    return out[:-1].view(C, W).to(torch.uint16), rlens
+
+
+# ---------------------------------------------------------------------------
+# SRC rank encode (rank.cpp:15-90): kernel K6 and its plain version
+
+
+def _check_rank(chunks, olens):
+    if chunks.dtype != torch.uint8 or chunks.dim() != 2:
+        raise ValueError("chunks must be a (C, W) uint8 tensor")
+    if olens.dtype != torch.int32 or olens.shape != chunks.shape[:1]:
+        raise ValueError("olens must be (C,) int32")
+    if chunks.device != olens.device:
+        raise ValueError("all inputs must be on one device")
+    return chunks.shape[0]
+
+
+def rank_encode(chunks: torch.Tensor, olens: torch.Tensor):
+    """SRC rank encode of C chunks.
+
+    chunks: (C, W) uint8 rows; olens: (C,) int32 lengths (<= 0 marks
+    padding).  Returns (ranks (C, W) uint8, bucket-ordered and zero past
+    each olen; freqs (C, 256) int32)."""
+    C = _check_rank(chunks, olens)
+    if not chunks.is_cuda:
+        return rank_encode_plain(chunks, olens)
+    W = chunks.shape[1]
+    ranks = torch.empty(C, W, dtype=torch.uint8, device=chunks.device)
+    freqs = torch.empty(C, 256, dtype=torch.int32, device=chunks.device)
+    if C == 0:
+        return ranks, freqs
+    chunks, olens = chunks.contiguous(), olens.contiguous()
+    RANK_KERNEL.launch(ptr(chunks), W, ptr(olens), C, ptr(ranks), ptr(freqs),
+                       stream_of(chunks))
+    return ranks, freqs
+
+
+def rank_encode_plain(chunks, olens):
+    """Plain PyTorch version of K6: setup by scatters and sorts, then a
+    Python loop over steps, all chunks in lockstep with masked tensor ops.
+    Same contract as rank_encode."""
+    C = _check_rank(chunks, olens)
+    dev = chunks.device
+    W = chunks.shape[1]
+    idx = torch.arange(W, device=dev)[None, :].expand(C, W)
+    valid = idx < olens[:, None]
+    c64 = chunks.long()
+    tgt = torch.where(valid, c64, 256)  # padding -> overflow bin
+    freqs = torch.zeros(C, 257, dtype=torch.int32, device=dev).scatter_add_(
+        1, tgt, torch.ones_like(tgt, dtype=torch.int32))[:, :256]
+    # MTF list in first-appearance order; unseen symbols trail in order
+    first = torch.full((C, 257), W, dtype=torch.long, device=dev)
+    first.scatter_reduce_(1, tgt, idx, reduce="amin")
+    r2s = torch.sort(first[:, :256], dim=1, stable=True).indices
+    # bucket bases in descending frequency, ties to the lowest symbol
+    negs, sorted_sym = torch.sort(-freqs, dim=1, stable=True)
+    base = torch.cumsum(-negs, 1) + negs
+    bucket = torch.zeros(C, 256, dtype=torch.long, device=dev).scatter_(
+        1, sorted_sym, base.long())
+    out = torch.zeros(C, W + 1, dtype=torch.uint8, device=dev)
+    rows = torch.arange(C, device=dev)
+    cols = torch.arange(256, device=dev)[None, :]
+    steps = min(max(int(olens.max()) if C else 0, 0), W)
+    for i in range(steps):
+        active = i < olens
+        sym = c64[:, i]
+        rank = (r2s == sym[:, None]).long().argmax(1)
+        bpos = bucket[rows, sym]
+        out[rows, torch.where(active, bpos, W)] = rank.to(torch.uint8)
+        bucket[rows, sym] = bpos + active.long()
+        shifted = torch.cat([r2s[:, :1], r2s[:, :-1]], 1)
+        take = active[:, None] & (cols <= rank[:, None]) & (cols >= 1)
+        head = active[:, None] & (cols == 0)
+        r2s = torch.where(head, sym[:, None], torch.where(take, shifted, r2s))
+    return out[:, :W], freqs.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The fused block encode
+
+
+def bwt_stage(data: torch.Tensor, units: int) -> torch.Tensor:
+    """Stages 1-5 of the store configuration: the input of the entropy
+    stage, [BWT | n3 % units raw bytes | units anchors]."""
+    dev = data.device
+    # 1. LZ store + 2. -f0 filters: [token | data] dealt into 64 KB rows,
+    # each behind its zero (type, width) header (filters.cpp:416-427)
+    tok = torch.as_tensor(END_TOKEN, device=dev)
+    n1 = data.numel() + tok.numel()
+    nf = ceil_div(n1, _FBS)
+    rows1 = torch.zeros(nf * _FBS, dtype=torch.uint8, device=dev)
+    rows1[:n1] = torch.cat([tok, data])
+    hdr = torch.zeros(nf, 2, dtype=torch.uint8, device=dev)
+    s2 = torch.cat([hdr, rows1.view(nf, _FBS)], 1).reshape(-1)[:n1 + 2 * nf]
+    # 3. Lpx skipped (spans 0); 4. the second LZ store framing; 5. forward
+    # BWT: trailing n3 % units bytes raw, anchors appended
+    return forward_bwt(torch.cat([tok, s2]), units)
+
+
+def chunk_rows(s4: torch.Tensor, chunk: int):
+    """The entropy input cut into (C, chunk) rows, zero-padded, with the
+    (C,) int32 chunk lengths."""
+    n4 = s4.numel()
+    C = ceil_div(n4, chunk)
+    olens = torch.as_tensor(
+        np.minimum(chunk, n4 - chunk * np.arange(C)).astype(np.int32),
+        device=s4.device)
+    return F.pad(s4, (0, C * chunk - n4)).view(C, chunk), olens
+
+
+def deal(syms: torch.Tensor, rlens: torch.Tensor, lanes: int):
+    """Round-robin lane deal (JTX wide interleave): chain (c, l) owns chunk
+    c's symbols l, l + lanes, ...  Returns (chains (C * eff, max_rlen)
+    uint16, crlens (C * eff,) int32, max_rlen), eff = max(lanes, 1)."""
+    C, chunk = syms.shape
+    eff = max(lanes, 1)
+    max_rlen = ceil_div(chunk, eff)
+    chains = F.pad(syms.int(), (0, max_rlen * eff - chunk)).view(
+        C, max_rlen, eff).transpose(1, 2).reshape(C * eff, max_rlen)
+    lane_ids = torch.arange(eff, dtype=torch.int32, device=syms.device)[None, :]
+    crlens = torch.div(rlens[:, None] - lane_ids + eff - 1, eff,
+                       rounding_mode="floor").reshape(-1).int()
+    return chains.to(torch.uint16), crlens, max_rlen
+
+
+def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
+                      chunk: int, lanes: int, lpx_spans: int = 0,
+                      times: dict = None):
+    """The whole per-block encode chain on data's device, in the store
+    configuration (-m3), filters off (-f0) and Lpx skipped (spans 0).
+
+    data: (n,) uint8, any n >= 0.  Returns (bufs (NL, 4*max_rlen+16)
+    uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C, 256) int32,
+    rlens (C,) int32) for the host splicer: NL = C * max(lanes, 1) chains
+    in chunk-major order, chain payload l = bufs[l, ptrs[l]:].  With a dict
+    `times`, each stage is synchronized and its wall seconds recorded."""
+    if fconfigs is not None:
+        raise NotImplementedError(
+            "the -f1/-f2 filter stage (device filter search) is not ported "
+            "yet")
+    if lpx_spans > 0:
+        raise NotImplementedError("the Lpx encode stage is not ported yet")
+    dev = data.device
+    t0 = time.perf_counter()
+
+    def mark(name):
+        nonlocal t0
+        if times is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            times[name] = times.get(name, 0.0) + now - t0
+            t0 = now
+
+    s4 = bwt_stage(data, units)
+    mark("bwt")
+    # 6. entropy, every chunk at once: rank -> RLE0 -> lane deal
+    rows, olens = chunk_rows(s4, chunk)
+    ranks, freqs = rank_encode(rows, olens)
+    mark("rank")
+    syms, rlens = rle0_encode(ranks, olens)
+    mark("rle0")
+    chains, crlens, max_rlen = deal(syms, rlens, lanes)
+    mark("deal")
+    # 7. model pass, then the reverse interleaved rANS
+    lows, fqs, oks = model_pairs_wide(chains, crlens, max_rlen)
+    mark("model")
+    bufs, ptrs = rans_reverse_encode_wide(lows, fqs, crlens, max_rlen)
+    mark("rans")
+    return bufs, ptrs, oks, freqs, rlens

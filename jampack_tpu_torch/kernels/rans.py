@@ -80,32 +80,6 @@ def _lookup(bank, boff, midx, m):
     return lo, hi - lo
 
 
-def _rescale(bank, qf, seen, qexp, pred, k):
-    """Quasi rescale (model.cpp:160-204, unsigned stretch) of model k of
-    every chain with `pred` set; updates the state in place."""
-    for kk in range(rc.NQ):
-        rows = pred & (k == kk)
-        alpha = int(rc.QALPHAS[kk])
-        q0, b0 = int(rc.QOFF[kk]), int(rc.BOFF[3 + kk])
-        qfk = qf[:, q0:q0 + alpha]
-        total = qfk.sum(1)
-        logv = torch.zeros_like(total)
-        for _ in range(21):  # smallest log with (total >> log) + alpha <= 2^16
-            logv += ((total >> logv) + alpha) > PROB_SCALE
-        f = (qfk >> logv[:, None]) + 1
-        t2 = f.sum(1, keepdim=True)
-        q = ((f << PROB_BITS) & _M32) // t2
-        q[:, 0] += PROB_SCALE - q.sum(1)
-        cum = q[:, :alpha - 1].cumsum(1) & 0xFFFF
-        seg = bank[:, b0:b0 + alpha - 1]
-        bank[:, b0:b0 + alpha - 1] = torch.where(rows[:, None], cum, seg)
-        qf[:, q0:q0 + alpha] = torch.where(rows[:, None], 0, qfk)
-        seen[:, kk] = torch.where(rows, 0, seen[:, kk])
-        grown = torch.where(qexp[:, kk] < rc.UPDATE_RATE, qexp[:, kk] << 1,
-                            rc.UPDATE_RATE)
-        qexp[:, kk] = torch.where(rows, grown, qexp[:, kk])
-
-
 def decode_lanes_wide_plain(buf, starts, rlens, max_rlen: int,
                             groups: int = 0):
     """Plain PyTorch version of K1: a Python loop over steps, all chains in
@@ -116,12 +90,9 @@ def decode_lanes_wide_plain(buf, starts, rlens, max_rlen: int,
     n = buf.numel()
     t = rc.to_device(dev)
     boff = t["boff"].long()
-    exp_mix = t["exp_mix"].long()
-    ma_mix = t["ma_mix"].long()
     exp_base = t["exp_base"].long()
     seg0 = (t["seg_id"] == 0)[None, :]
     seg_idx = t["seg_id"][None, :].expand(L, 256)
-    qoff = t["qoff"]
 
     b = buf.long()
     bp = F.pad(b, (0, 3))
@@ -136,12 +107,8 @@ def decode_lanes_wide_plain(buf, starts, rlens, max_rlen: int,
                      | (byte_at(st + 4 * k + 2) << 16)
                      | (byte_at(st + 4 * k + 3) << 24) for k in range(4)], 1)
     ptr_ = st + 16
-    bank = t["bank_init"].long()[None, :].repeat(L, 1)
-    qf = torch.zeros(L, int(rc.QOFF[-1]), dtype=torch.long, device=dev)
-    seen = torch.zeros(L, rc.NQ, dtype=torch.long, device=dev)
-    qexp = torch.full((L, rc.NQ), 8, dtype=torch.long, device=dev)
+    bank, qf, seen, qexp = rc.model_state(t, L)
     syms = torch.zeros(L, max_rlen, dtype=torch.int32, device=dev)
-    rows = torch.arange(L, device=dev)
 
     def renorm(x, w, kb, active):
         for _ in range(2):
@@ -177,27 +144,7 @@ def decode_lanes_wide_plain(buf, starts, rlens, max_rlen: int,
         ptr_ = ptr_ + kb
         R = torch.cat([R[:, 1:], torch.where(active, x, R[:, 0])[:, None]], 1)
 
-        # adaptive CDF mixing, arithmetic >> RATE
-        head = bank[:, :7]
-        bank[:, :7] = torch.where(active[:, None],
-                                  head + ((exp_mix[e] - head) >> rc.RATE), head)
-        adaptive = active & (e < rc.NSW)
-        ei = e.clamp(max=rc.NSW - 1)
-        col = 7 + ei
-        cur = bank[rows, col]
-        mix = ma_mix[ei, m.clamp(0, 1)]
-        bank[rows, col] = torch.where(adaptive, cur + ((mix - cur) >> rc.RATE),
-                                      cur)
-        # quasi counts, then the rescale of models whose period ran out
-        quasi = active & (e >= rc.NSW)
-        k = (e - rc.NSW).clamp(0, rc.NQ - 1)
-        qcol = (qoff[k] + m).clamp(0, qf.shape[1] - 1)
-        qf[rows, qcol] += torch.where(quasi, PROB_BITS, 0)
-        seen[rows, k] += quasi.long()
-        pred = quasi & (seen[rows, k] > qexp[rows, k])
-        if bool(pred.any()):
-            _rescale(bank, qf, seen, qexp, pred, k)
-
+        rc.model_update(t, bank, qf, seen, qexp, active, e, m)
         syms[:, i] = torch.where(active, exp_base[e] + m, 0).int()
 
     ok = (R == RANS_BYTE_L).all(1) | (rl < 0)

@@ -1,4 +1,5 @@
-"""The rANS entropy coder's constant tables, built without JAX.
+"""The rANS entropy coder's constant tables, built without JAX, and the
+plain PyTorch model update that the decode and encode passes share.
 
 The codec has no weights; the state it carries across chunks is these
 tables, rebuilt here from jampack_tpu.format alone (the JAX package keeps
@@ -18,6 +19,7 @@ import torch
 from jampack_tpu.format.constants import (
     MAX_MODELS,
     MODEL_SWITCH_THRESHOLD,
+    PROB_BITS,
     PROB_SCALE,
 )
 from jampack_tpu.format.tables import EXPONENT, MODEL_ALPHABET
@@ -77,8 +79,8 @@ if BANK_INIT.shape != (256,) or int(QOFF[-1]) != 253:
 
 
 def to_device(device) -> dict:
-    """The tables the decode step reads, as int tensors on `device`: the
-    plain version and the CUDA kernel take the same ones."""
+    """The tables the model passes read, as int tensors on `device`: the
+    plain versions and the CUDA kernels take the same ones."""
     dev = torch.device(device)
 
     def t(a, dtype=torch.int32):
@@ -93,4 +95,71 @@ def to_device(device) -> dict:
         "exp_base": t(EXPONENT[:MAX_MODELS]),             # (8,)
         "seg_id": t(SEG_ID, torch.int64),                 # (256,)
         "qoff": t(QOFF, torch.int64),                     # (7,)
+        "qalpha": t(QALPHAS, torch.int64),                # (6,)
     }
+
+
+def model_state(t: dict, L: int):
+    """Fresh model state of L chains, int64 on the tables' device:
+    (bank (L, 256), quasi counts (L, 253), seen (L, 6), thresholds (L, 6))."""
+    dev = t["bank_init"].device
+    bank = t["bank_init"].long()[None, :].repeat(L, 1)
+    qf = torch.zeros(L, int(QOFF[-1]), dtype=torch.long, device=dev)
+    seen = torch.zeros(L, NQ, dtype=torch.long, device=dev)
+    qexp = torch.full((L, NQ), 8, dtype=torch.long, device=dev)
+    return bank, qf, seen, qexp
+
+
+def _rescale(bank, qf, seen, qexp, pred, k):
+    """Quasi rescale (model.cpp:160-204, unsigned stretch) of model k of
+    every chain with `pred` set; updates the state in place."""
+    for kk in range(NQ):
+        rows = pred & (k == kk)
+        alpha = int(QALPHAS[kk])
+        q0, b0 = int(QOFF[kk]), int(BOFF[3 + kk])
+        qfk = qf[:, q0:q0 + alpha]
+        total = qfk.sum(1)
+        logv = torch.zeros_like(total)
+        for _ in range(21):  # smallest log with (total >> log) + alpha <= 2^16
+            logv += ((total >> logv) + alpha) > PROB_SCALE
+        f = (qfk >> logv[:, None]) + 1
+        t2 = f.sum(1, keepdim=True)
+        q = ((f << PROB_BITS) & 0xFFFFFFFF) // t2
+        q[:, 0] += PROB_SCALE - q.sum(1)
+        cum = q[:, :alpha - 1].cumsum(1) & 0xFFFF
+        seg = bank[:, b0:b0 + alpha - 1]
+        bank[:, b0:b0 + alpha - 1] = torch.where(rows[:, None], cum, seg)
+        qf[:, q0:q0 + alpha] = torch.where(rows[:, None], 0, qfk)
+        seen[:, kk] = torch.where(rows, 0, seen[:, kk])
+        grown = torch.where(qexp[:, kk] < UPDATE_RATE, qexp[:, kk] << 1,
+                            UPDATE_RATE)
+        qexp[:, kk] = torch.where(rows, grown, qexp[:, kk])
+
+
+def model_update(t: dict, bank, qf, seen, qexp, active, e, m):
+    """The model update after one symbol per chain (exponent e, mantissa
+    m; chains with `active` false hold still), in place: adaptive CDF
+    mixing (arithmetic >> RATE) of the exponent model and of an adaptive
+    mantissa model, or the quasi count and the periodic rescale.  A
+    mantissa past its quasi model's alphabet (an invalid encode symbol)
+    counts nothing, as model_pairs_wide's one-hot does."""
+    rows = torch.arange(bank.shape[0], device=bank.device)
+    head = bank[:, :7]
+    bank[:, :7] = torch.where(active[:, None],
+                              head + ((t["exp_mix"][e] - head) >> RATE),
+                              head)
+    adaptive = active & (e < NSW)
+    ei = e.clamp(max=NSW - 1)
+    col = 7 + ei
+    cur = bank[rows, col]
+    mix = t["ma_mix"][ei, m.clamp(0, 1)]
+    bank[rows, col] = torch.where(adaptive, cur + ((mix - cur) >> RATE), cur)
+    quasi = active & (e >= NSW)
+    k = (e - NSW).clamp(0, NQ - 1)
+    counted = quasi & (m < t["qalpha"][k])
+    qcol = (t["qoff"][k] + m).clamp(0, qf.shape[1] - 1)
+    qf[rows, qcol] += torch.where(counted, PROB_BITS, 0)
+    seen[rows, k] += quasi.long()
+    pred = quasi & (seen[rows, k] > qexp[rows, k])
+    if bool(pred.any()):
+        _rescale(bank, qf, seen, qexp, pred, k)

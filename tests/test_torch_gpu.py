@@ -24,11 +24,19 @@ from jampack_tpu.stages.ans import (
 )
 from jampack_tpu.stages.rank import rank_decode as spec_rank_decode
 from jampack_tpu.stages.rank import rank_encode
-from jampack_tpu_torch.kernels import device_stages, ibwt, rank, rans
+from jampack_tpu_torch.kernels import (
+    device_stages,
+    encode_stages,
+    ibwt,
+    rank,
+    rans,
+    rans_encode,
+)
 from jampack_tpu_torch.runtime.device_decode import (
     decode_block_device,
     decompress_stream_device,
 )
+from jampack_tpu_torch.runtime.device_encode import encode_block_device
 
 pytestmark = pytest.mark.gpu
 
@@ -178,3 +186,114 @@ def test_golden_jt3_prod_fixture_on_cuda(cuda):
     out = io.BytesIO()
     decompress_stream_device(io.BytesIO(arc), out, cuda)
     assert out.getvalue() == want
+
+
+# ---------------------------------------------------------------------------
+# the encode kernels K4, K5, K6 and the fused block encode
+
+
+def _pairs_case(L, max_rlen, seed):
+    rng = np.random.default_rng(seed)
+    chains = np.zeros((L, max_rlen), np.uint16)
+    rlens = rng.integers(0, max_rlen + 1, L).astype(np.int32)
+    rlens[0] = max_rlen
+    rlens[1] = 0
+    for l in range(L):
+        v = rng.integers(0, 257, rlens[l])
+        v = np.where(rng.random(rlens[l]) < 0.5, rng.integers(0, 3, rlens[l]), v)
+        chains[l, :rlens[l]] = v
+    return chains, rlens
+
+
+@pytest.mark.parametrize("L,mr,seed,wrap", [
+    (37, 700, 1, False), (70, 4096, 2, False), (5, 600, 3, True)])
+def test_model_pairs_kernel_matches_plain(cuda, L, mr, seed, wrap):
+    chains, rlens = _pairs_case(L, mr, seed)
+    if wrap:  # invalid quasi symbols: the zero-frequency regime
+        chains[:] = np.random.default_rng(seed).integers(16000, 16200, (L, mr))
+        rlens[:] = mr
+    args = [torch.from_numpy(a).to(cuda) for a in (chains, rlens)]
+    before = rans_encode.PAIRS_KERNEL.launches
+    got = rans_encode.model_pairs_wide(*args, mr)
+    assert rans_encode.PAIRS_KERNEL.launches == before + 1
+    want = rans_encode.model_pairs_wide_plain(*args, mr)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu().int(), w.cpu().int())
+    assert bool(got[2].all()) != wrap
+
+
+@pytest.mark.parametrize("L,mr,seed", [(37, 700, 4), (70, 4096, 5)])
+def test_reverse_encode_kernel_matches_plain(cuda, L, mr, seed):
+    chains, rlens = _pairs_case(L, mr, seed)
+    rl = torch.from_numpy(rlens).to(cuda)
+    lows, fqs, _ = rans_encode.model_pairs_wide(
+        torch.from_numpy(chains).to(cuda), rl, mr)
+    before = rans_encode.REVERSE_KERNEL.launches
+    got = rans_encode.rans_reverse_encode_wide(lows, fqs, rl, mr)
+    assert rans_encode.REVERSE_KERNEL.launches == before + 1
+    _same(got, rans_encode.rans_reverse_encode_wide_plain(lows, fqs, rl, mr))
+
+
+def test_rank_encode_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    W = 16384
+    sizes = [16384, 1000, 0, -2, 3000, 1, 500]
+    chunks = rng.integers(0, 256, (len(sizes), W), dtype=np.uint8)
+    chunks[::2] %= 7
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (chunks, np.asarray(sizes, np.int32))]
+    before = encode_stages.RANK_KERNEL.launches
+    got = encode_stages.rank_encode(*args)
+    assert encode_stages.RANK_KERNEL.launches == before + 1
+    _same(got, encode_stages.rank_encode_plain(*args))
+    r, f = rank_encode(chunks[0])
+    assert np.array_equal(got[0][0].cpu().numpy(), r)
+    assert np.array_equal(got[1][0].cpu().numpy(), np.asarray(f, np.int32))
+
+
+def test_rank_encode_kernel_on_a_1mib_chunk(cuda):
+    """A JAM-size chunk, past the TPU path's 0x7FFF packed-cursor limit."""
+    n = 1 << 20
+    rng = np.random.default_rng(8)
+    data = np.repeat(rng.integers(0, 40, n // 8), 8).astype(np.uint8)
+    ranks, freqs = encode_stages.rank_encode(
+        torch.from_numpy(data[None]).to(cuda),
+        torch.tensor([n], dtype=torch.int32, device=cuda))
+    r, f = rank_encode(data)
+    assert np.array_equal(ranks[0].cpu().numpy(), r)
+    assert np.array_equal(freqs[0].cpu().numpy(), np.asarray(f, np.int32))
+    assert np.array_equal(spec_rank_decode(r, f), data)
+
+
+@pytest.mark.parametrize("lanes,chunk,units,n", [
+    (4, 16 << 10, 960, 70000), (0, 4096, 120, 30000), (16, 2048, 24, 20000),
+    (4, 16 << 10, 960, 0)])
+def test_block_encode_on_cuda_matches_cpu(cuda, lanes, chunk, units, n):
+    rng = np.random.default_rng(n)
+    data = np.concatenate([
+        np.frombuffer(b"block encode on the card " * (n // 50 + 1), np.uint8),
+        rng.integers(0, 6, n)]).astype(np.uint8)[:n]
+    opt = Options(blocksize=1 << 20, match_finder=3, filters=0,
+                  anchor_units=units, rans_lanes=lanes, ans_chunk=chunk,
+                  lpx_spans=0)
+    kernels = (rans_encode.PAIRS_KERNEL, rans_encode.REVERSE_KERNEL,
+               encode_stages.RANK_KERNEL)
+    launches = [k.launches for k in kernels]
+    got = encode_block_device(data, opt, device=cuda)
+    assert all(k.launches > c for k, c in zip(kernels, launches))
+    assert got == encode_block_device(data, opt, device="cpu")
+    assert got == compress_block_ex(data, opt, NativeEngine())[:2]
+
+
+def test_device_encode_then_decode_of_an_8mib_block(cuda):
+    """The production block size: device encode, device decode, input back."""
+    n = 8 << 20
+    rng = np.random.default_rng(0)
+    alpha = np.frombuffer(b" etaoinshrdlucmfwypvbgkqjxz.,\n", np.uint8)
+    data = alpha[rng.integers(0, alpha.size, n)]
+    opt = Options(blocksize=n, match_finder=3, filters=0, anchor_units=960,
+                  rans_lanes=4, ans_chunk=16 << 10, lpx_spans=0)
+    crc, payload = encode_block_device(data, opt, device=cuda)
+    got = decode_block_device(payload, crc, opt.blocksize, 960, 4, 0,
+                              device=cuda)
+    assert np.array_equal(got, data)
