@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives jampack_tpu_torch's two paths on cuda:0, with no JAX anywhere:
-the fused block decode of the production JT3 stream (-c16 -L4 -u960
+Drives jampack_tpu_torch's paths on cuda:0.  The script imports nothing of
+JAX and nothing of jampack_tpu: the oracle archives come from a separate
+process, `python -m jampack_tpu.cli c` with its native host engine.  The
+paths: the fused block decode of the production JT3 stream (-c16 -L4 -u960
 -S4096 -Sa, the CLI's -f1) and the fused block encode of the store
-configuration (-m3 -f0 -c16 -L4 -u960 -S0):
+configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
+-S0):
 
   1. facts     nvidia-smi name and power limit; NVIDIA, torch, CUDA versions
-  2. build     nvcc builds the six kernels from csrc/, one process each
-  3. encode    host encode (shared native engine) of a 32 MiB, four-block
-               textlike archive through the port's CLI; every block must
-               frame lpx_spans = 0 (the Lpx gate drops the stage on text)
+  2. build     nvcc builds the eight kernels from csrc/, one process each
+  3. oracle    host encode of a 32 MiB, four-block textlike archive in the
+               production stream; every block must frame lpx_spans = 0 (the
+               Lpx gate drops the stage on text)
   4. parity    each decode kernel against its plain PyTorch version, exact,
                on the stage inputs of the archive's first 8 MiB block, with
                both times from CUDA events after a warm-up
@@ -21,21 +24,40 @@ configuration (-m3 -f0 -c16 -L4 -u960 -S0):
                and per-block CRCs must match, and every kernel must have
                run; then the per-stage split of one block
   6. parity    each encode kernel against its plain version, exact, on the
-               stage inputs of the first 8 MiB block of the encode
-               configuration
-  7. fused     the same 32 MiB through `cli c --engine fused` on cuda, with
-               the encode kernels' launch counts zeroed just before: the
-               archive must equal the host engine's (`cli c`, same flags)
-               byte for byte, and every encode kernel must have run once per
-               block, the trailing empty block included
+               stage inputs of the first 8 MiB block of the -f0 encode
+  7. fused     the 32 MiB through `cli c -m3 -f0 ...` on cuda, encode
+               launch counts zeroed just before: the archive must equal the
+               oracle's byte for byte, and every encode kernel must have run
+               once per block, the trailing empty block included
   8. round     that archive through `cli d` on cuda, decode counts zeroed:
                the input comes back, every decode kernel ran
-  9. split     the per-stage times of block 0's device encode
- 10. golden    the golden JT3 fixture decodes to golden_input.bin
+  9. split     the per-stage times of block 0's -f0 device encode
+ 10. parity    the filter kernels at the shapes of an 8 MiB block of
+               structured data (interleaved int16 sines with noise): K8
+               both ways on the 4,128 LPC lanes of the -f2 sweep, K7 on
+               the sweep's 12,513 lanes and on the -f1 candidates' sorted
+               lanes; the torch.bincount of the same pairs is timed beside
+ 11. f1        the 32 MiB through `cli c -m3 -f1 ...` on cuda, every launch
+               count zeroed just before: byte-identical to the oracle, K7
+               launched for every block
+ 12. f1 data   the structured 8 MiB through `cli c -m3 -f1 ...`, counts
+               zeroed: byte-identical to the oracle, some chunk picked a
+               filter (the candidates and the previous pick applied on the
+               card); its decode on cuda gives the input back
+ 13. f2        the structured 8 MiB through `cli c -m3 -f2 ...`, counts
+               zeroed: byte-identical to the oracle; then its decode on
+               cuda, counts zeroed: K8 (decode direction) must run, so some
+               chunk picked LPC, and the input must come back
+ 14. split     the per-stage times of block 0's -f1 (text and structured)
+               and -f2 encodes
+ 15. golden    the golden JT3 fixture decodes to golden_input.bin
 
 Any failure raises, so the script exits non-zero without its last line.
-The last lines are the kernels JSON, the nvidia-smi line, and
-{"ok": true, "device": {...}}.  Exits 1 at once when no GPU is present.
+The last lines are the kernels JSON (times, launches on the path that
+runs each kernel, and the bound: the largest of the bytes over 3.35 TB/s,
+the integer operations over 67 T/s and the serial-dependency floor, which
+serial_ms gives alone), the nvidia-smi line, and {"ok": true, "device":
+{...}}.  Exits 1 at once when no GPU is present.
 """
 
 import json
@@ -49,7 +71,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BLOCK = 8 << 20
 NBLOCKS = 4
 PROD_FLAGS = ["-c16", "-L4", "-u960", "-S4096", "-Sa"]
-ENC_FLAGS = ["-m3", "-f0", "-c16", "-L4", "-u960", "-S0"]
+STREAM = ["-c16", "-L4", "-u960", "-S0"]
+F0_FLAGS = ["-m3", "-f0", *STREAM]
+F1_FLAGS = ["-m3", "-f1", *STREAM]
+F2_FLAGS = ["-m3", "-f2", *STREAM]
+
+# The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s,
+# and the float32 rate outside the tensor cores, taken as the ceiling of the
+# kernels' int32 operations.  The serial floor counts each dependent
+# integer op of the longest chain at 4 cycles at the 1.98 GHz boost clock.
+HBM_BPS = 3.35e12
+OPS_PER_S = 67e12
+DEP_CYCLES = 4
+CLOCK_HZ = 1.98e9
 
 
 def textlike(n: int, seed: int):
@@ -62,6 +96,19 @@ def textlike(n: int, seed: int):
     return alpha[(x >> 16) % 30]
 
 
+def structured(n: int, seed: int):
+    """Two interleaved int16 channels (sums of sines) with noise: the kind
+    of sampled data for which -f2 picks LPC."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(-(-n // 4))
+    ch = [4000 * np.sin(t / 300.0) + 3000 * np.sin(t / 47.0),
+          6000 * np.cos(t / 410.0)]
+    x = np.stack([c + rng.normal(0, 2, t.size) for c in ch], 1)
+    return x.astype(np.int16).view(np.uint8).reshape(-1)[:n]
+
+
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -71,6 +118,22 @@ def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def oracle(src: str, dst: str, flags) -> float:
+    """The host encode of src by `python -m jampack_tpu.cli c` (its native
+    engine) in a process of its own; returns its wall seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "jampack_tpu.cli", "c", src,
+                          dst, *flags], cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    check(res.returncode == 0, f"oracle encode {flags} failed:\n{res.stderr}")
+    return time.perf_counter() - t0
+
+
+def read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -87,10 +150,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: int, steps: int, dep: int) -> dict:
+    """The least time the card could take: the largest of the bytes moved
+    (each input read once, each output written once) over the HBM rate,
+    the integer ops over the peak rate, and the serial floor of `steps`
+    steps of `dep` dependent ops.  bound_by is "bytes" or "operations"
+    (either operations term); serial_ms is the floor alone."""
+    t_bytes = moved / HBM_BPS * 1e3
+    t_serial = steps * dep * DEP_CYCLES / CLOCK_HZ * 1e3
+    t_ops = max(ops / OPS_PER_S * 1e3, t_serial)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "serial_ms": t_serial}
+
+
 def parity(name, kernel_fn, plain_fn, reps):
     """Run both versions (first calls are the warm-up), require exact
     equality, then time each.  Returns (outputs, row of the kernels JSON
-    without launches)."""
+    without launches and bound)."""
     import torch
 
     got = kernel_fn()
@@ -104,17 +185,22 @@ def parity(name, kernel_fn, plain_fn, reps):
     ms = cuda_ms(kernel_fn, reps)
     plain_ms = cuda_ms(plain_fn, 1)
     print(f"parity {name}: exact; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return got, {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+    return got, {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None}
 
 
-def decode_cli(cli, kernels, arc, out):
-    """`cli d` of `arc` on cuda with the kernels' launch counts zeroed just
-    before; every kernel must have run.  Returns (wall s, launches)."""
+def zero(kernels) -> None:
     import torch
 
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
+
+
+def decode_cli(cli, kernels, arc, out):
+    """`cli d` of `arc` on cuda with the kernels' launch counts zeroed just
+    before; every kernel must have run.  Returns (wall s, launches)."""
+    zero(kernels)
     t0 = time.perf_counter()
     check(cli.run(["cli", "d", arc, out, "--device", "cuda"]) == 0,
           "decode failed")
@@ -123,6 +209,26 @@ def decode_cli(cli, kernels, arc, out):
     for k, n in zip(kernels, launches):
         check(n > 0, f"{k.name} was not launched on the decode path")
     return wall, launches
+
+
+def encode_cli(cli, kernels, src, dst, flags):
+    """`cli c` (the device encode) of src on cuda with every launch count
+    zeroed just before.  Returns (wall s, launches, archive bytes)."""
+    zero(kernels)
+    t0 = time.perf_counter()
+    check(cli.run(["cli", "c", src, dst, *flags, "--device", "cuda"]) == 0,
+          f"device encode {flags} failed")
+    wall = time.perf_counter() - t0
+    return wall, [k.launches for k in kernels], read(dst)
+
+
+def count_blocks(framing, data: bytes) -> int:
+    import io
+
+    f, n = io.BytesIO(data), 0
+    while framing.read_block(f) is not None:
+        n += 1
+    return n
 
 
 def main() -> int:
@@ -135,24 +241,30 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from jampack_tpu.runtime.pipeline import Options
     from jampack_tpu_torch import cli
     from jampack_tpu_torch.kernels import (
         _build,
         device_stages,
         encode_stages,
+        filters_search,
+        hist,
         ibwt,
+        lpc,
         rank,
         rans,
         rans_encode,
+        sa,
     )
     from jampack_tpu_torch.runtime import device_decode as dd
     from jampack_tpu_torch.runtime import device_encode as de
+    from jampack_tpu_torch.runtime.options import Options
 
     dev = torch.device("cuda:0")
     dec_kernels = [rans.KERNEL, rank.KERNEL, ibwt.KERNEL]
     enc_kernels = [encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
                    rans_encode.REVERSE_KERNEL]
+    all_kernels = dec_kernels + enc_kernels + [hist.KERNEL, lpc.KERNEL]
+    rows = {}
 
     # ---- 1. facts
     card = smi("name,power.limit")
@@ -180,13 +292,12 @@ def main() -> int:
         arc = os.path.join(tmp, "textlike32.jt3")
         back = os.path.join(tmp, "textlike32.out")
 
-        # ---- 3. encode (host, shared native engine)
+        # ---- 3. oracle: the production archive, encoded on the host
         with open(src, "wb") as f:
             for seed in range(NBLOCKS):
                 f.write(textlike(BLOCK, seed).tobytes())
-        t0 = time.perf_counter()
-        check(cli.run(["cli", "c", src, arc, *PROD_FLAGS]) == 0, "encode failed")
-        enc_s = time.perf_counter() - t0
+        want = read(src)
+        enc_s = oracle(src, arc, PROD_FLAGS)
         blocks = []
         with open(arc, "rb") as f:
             while (rec := dd.framing.read_block(f)) is not None:
@@ -194,12 +305,12 @@ def main() -> int:
         check(len(blocks) == NBLOCKS + 1, f"{len(blocks)} blocks framed")
         check(all(h.lpx_spans == 0 and h.units == 960 and h.lanes == 4
                   for h, _ in blocks), "a block framed Lpx spans > 0")
-        print(f"encode: {NBLOCKS * BLOCK} bytes -> {os.path.getsize(arc)} in "
-              f"{enc_s:.1f} s on the host (first use builds the native "
-              f"engine); "
-              f"{len(blocks)} blocks, all lpx_spans=0")
+        print(f"oracle: {NBLOCKS * BLOCK} bytes -> {os.path.getsize(arc)} in "
+              f"{enc_s:.1f} s on the host (python -m jampack_tpu.cli c; first"
+              f" use builds the native engine); {len(blocks)} blocks, all "
+              f"lpx_spans=0")
 
-        # ---- 4. kernel parity at the slice shapes of block 0
+        # ---- 4. decode kernel parity at the slice shapes of block 0
         header, payload = blocks[0]
         meta = dd.block_meta(payload, header.lanes)
         C = meta["chunk_olens"].size
@@ -211,22 +322,26 @@ def main() -> int:
         freqs = torch.from_numpy(meta["freqs"]).to(dev)
         rmax = int(meta["rlens"].max())
         ocap = int(meta["chunk_olens"].max())
+        nsym = int(meta["rlens"].clip(0).sum())
         print(f"shapes: payload {len(payload)} B, {C} chunks, {starts.numel()} "
               f"chains of <= {rmax} symbols, chunks of <= {ocap} bytes")
-        rows = []
-        (syms, _), row = parity(
+        (syms, ok), row = parity(
             "rans_decode",
             lambda: rans.decode_lanes_wide(pay, starts, rlens, rmax, groups=C),
             lambda: rans.decode_lanes_wide_plain(pay, starts, rlens, rmax,
                                                  groups=C), 5)
-        rows.append(row)
+        # per symbol: two range searches of the bank, two state updates and
+        # renorms, the model update; the chain runs through the state
+        rows["rans_decode"] = {**row, **bound(
+            nbytes(pay, starts, rlens, syms, ok), 60 * nsym, rmax, 30)}
         ranks, _ = device_stages.rle0_decode(syms, crlens, olens, ocap)
-        (chunk_bytes, _), row = parity(
+        (chunk_bytes, rok), row = parity(
             "rank_decode",
             lambda: rank.rank_decode(ranks, freqs, olens, ocap),
             lambda: rank.rank_decode_plain(ranks, freqs, olens, ocap), 5)
-        rows.append(row)
         total = int(meta["chunk_olens"].sum())
+        rows["rank_decode"] = {**row, **bound(
+            nbytes(ranks, freqs, olens, chunk_bytes, rok), 8 * total, ocap, 6)}
         stage = chunk_bytes.reshape(-1)[:total]
         n = total - 4 * header.units
         nlen = n - n % header.units
@@ -234,18 +349,17 @@ def main() -> int:
         lf, sbyte = ibwt.combined_map(stage[:nlen], anchors[0])
         print(f"shapes: BWT stage {total} B, chase {header.units} chains x "
               f"{nlen // header.units} steps over a {nlen}-entry map")
-        _, row = parity(
+        (body,), row = parity(
             "ibwt_chase",
             lambda: (ibwt.chase(lf, sbyte, anchors, header.units),),
             lambda: (ibwt.chase_plain(lf, sbyte, anchors, header.units),), 5)
-        rows.append(row)
+        rows["ibwt_chase"] = {**row, **bound(
+            nbytes(lf, sbyte, anchors, body), 3 * nlen, nlen // header.units,
+            3)}
 
         # ---- 5. decode the archive through the CLI, counting launches
-        dec_s, launches = decode_cli(cli, dec_kernels, arc, back)
-        with open(src, "rb") as f:
-            want = f.read()
-        with open(back, "rb") as f:
-            got = f.read()
+        dec_s, dec_launches = decode_cli(cli, dec_kernels, arc, back)
+        got = read(back)
         check(got == want, "decoded archive differs from the input")
         for i, (h, _) in enumerate(blocks[:NBLOCKS]):
             part = np.frombuffer(got[i * BLOCK:(i + 1) * BLOCK], np.uint8)
@@ -253,13 +367,14 @@ def main() -> int:
         print(f"decode: {len(got)} bytes in {dec_s:.3f} s = "
               f"{len(got) / dec_s / 1e9:.4f} GB/s (CLI wall, host CRC "
               f"included); bytes and {NBLOCKS} block CRCs match; launches "
-              + ", ".join(f"{k.name}={c}" for k, c in zip(dec_kernels, launches)))
+              + ", ".join(f"{k.name}={c}" for k, c in zip(dec_kernels,
+                                                          dec_launches)))
         times = {}
         t0 = time.perf_counter()
         dd.decode_block_device(payload, header.crc, header.blocksize, header.units,
-                            header.lanes, header.lpx_spans, dev, times)
+                               header.lanes, header.lpx_spans, dev, times)
         block_s = time.perf_counter() - t0
-        print(f"block 0 stages (s, synchronized): "
+        print("block 0 stages (s, synchronized): "
               + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
               + f"; block wall {block_s:.3f} s incl. host CRC")
 
@@ -268,78 +383,72 @@ def main() -> int:
                       rans_lanes=4, ans_chunk=16 << 10, anchor_units=960,
                       lpx_spans=0)
         block0 = textlike(BLOCK, 0)
-        s4 = encode_stages.bwt_stage(torch.from_numpy(block0).to(dev), 960)
+        tok = torch.as_tensor(encode_stages.END_TOKEN, device=dev)
+        s2 = encode_stages.filter_stage(
+            torch.cat([tok, torch.from_numpy(block0).to(dev)]))
+        s4 = sa.forward_bwt(torch.cat([tok, s2]), 960)
         rows_in, olens_e = encode_stages.chunk_rows(s4, opt.ans_chunk)
         print(f"shapes: encode stage {s4.numel()} B, {rows_in.shape[0]} "
               f"chunks of <= {rows_in.shape[1]} bytes")
-        (ranks_e, _), row = parity(
+        (ranks_e, freqs_e), row = parity(
             "rank_encode",
             lambda: encode_stages.rank_encode(rows_in, olens_e),
             lambda: encode_stages.rank_encode_plain(rows_in, olens_e), 5)
-        rows.append(row)
+        rows["rank_encode"] = {**row, **bound(
+            nbytes(rows_in, olens_e, ranks_e, freqs_e), 10 * s4.numel(),
+            rows_in.shape[1], 8)}
         syms_e, rlens_e = encode_stages.rle0_encode(ranks_e, olens_e)
-        chains, crlens, mr = encode_stages.deal(syms_e, rlens_e, opt.rans_lanes)
-        print(f"shapes: {chains.shape[0]} chains of <= {int(crlens.max())} "
+        chains, crlens_e, mr = encode_stages.deal(syms_e, rlens_e,
+                                                  opt.rans_lanes)
+        nsym_e = int(crlens_e.clamp(min=0).sum())
+        print(f"shapes: {chains.shape[0]} chains of <= {int(crlens_e.max())} "
               f"symbols (max_rlen {mr})")
         (lows, fqs, oks), row = parity(
             "model_pairs",
-            lambda: rans_encode.model_pairs_wide(chains, crlens, mr),
-            lambda: rans_encode.model_pairs_wide_plain(chains, crlens, mr), 5)
-        rows.append(row)
+            lambda: rans_encode.model_pairs_wide(chains, crlens_e, mr),
+            lambda: rans_encode.model_pairs_wide_plain(chains, crlens_e, mr), 5)
+        rows["model_pairs"] = {**row, **bound(
+            nbytes(chains, crlens_e, lows, fqs, oks), 50 * nsym_e, mr, 20)}
         check(bool(oks.all()), "model pass flagged a zero-frequency op")
-        _, row = parity(
+        (bufs, ptrs), row = parity(
             "rans_encode",
-            lambda: rans_encode.rans_reverse_encode_wide(lows, fqs, crlens, mr),
+            lambda: rans_encode.rans_reverse_encode_wide(lows, fqs, crlens_e, mr),
             lambda: rans_encode.rans_reverse_encode_wide_plain(lows, fqs,
-                                                               crlens, mr), 5)
-        rows.append(row)
+                                                               crlens_e, mr), 5)
+        # two ops per symbol, each a uint32 division and up to two emissions
+        rows["rans_encode"] = {**row, **bound(
+            nbytes(lows, fqs, crlens_e, bufs, ptrs), 2 * 12 * nsym_e, 2 * mr,
+            20)}
 
-        # ---- 7. fused encode through the CLI, counting launches
-        host_arc = os.path.join(tmp, "textlike32.host.jt3")
-        dev_arc = os.path.join(tmp, "textlike32.dev.jt3")
-        t0 = time.perf_counter()
-        check(cli.run(["cli", "c", src, host_arc, *ENC_FLAGS]) == 0,
-              "host encode (store configuration) failed")
-        host_s = time.perf_counter() - t0
-        for k in enc_kernels:
-            k.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        check(cli.run(["cli", "c", src, dev_arc, *ENC_FLAGS, "--engine",
-                       "fused", "--device", "cuda"]) == 0, "fused encode failed")
-        enc_s = time.perf_counter() - t0
-        enc_launches = [k.launches for k in enc_kernels]
-        with open(host_arc, "rb") as f:
-            host_bytes = f.read()
-        with open(dev_arc, "rb") as f:
-            dev_bytes = f.read()
-        check(dev_bytes == host_bytes,
-              "fused archive differs from the host engine's")
-        nblk = 0
-        with open(dev_arc, "rb") as f:
-            while dd.framing.read_block(f) is not None:
-                nblk += 1
+        # ---- 7. fused -f0 encode through the CLI, counting launches
+        host_arc = os.path.join(tmp, "textlike32.f0.host.jt3")
+        dev_arc = os.path.join(tmp, "textlike32.f0.dev.jt3")
+        host_s = oracle(src, host_arc, F0_FLAGS)
+        enc_s, launches, dev_bytes = encode_cli(cli, all_kernels, src,
+                                                dev_arc, F0_FLAGS)
+        enc_launches = launches[3:6]
+        check(dev_bytes == read(host_arc),
+              "fused -f0 archive differs from the oracle's")
+        nblk = count_blocks(dd.framing, dev_bytes)
         check(nblk == NBLOCKS + 1,
               f"{nblk} blocks framed; the trailing empty block is missing")
         for k, c in zip(enc_kernels, enc_launches):
             check(c == nblk, f"{k.name} launched {c} times for {nblk} blocks")
-        print(f"fused encode: {NBLOCKS * BLOCK} bytes -> {len(dev_bytes)} in "
-              f"{enc_s:.3f} s = {NBLOCKS * BLOCK / enc_s / 1e9:.4f} GB/s (CLI "
-              f"wall, host CRC and splice included); byte-identical to the "
-              f"host engine ({host_s:.1f} s); {nblk} blocks, the empty one "
-              f"included; launches "
-              + ", ".join(f"{k.name}={c}" for k, c in zip(enc_kernels,
-                                                          enc_launches)))
+        print(f"fused -f0 encode: {NBLOCKS * BLOCK} bytes -> {len(dev_bytes)} "
+              f"in {enc_s:.3f} s = {NBLOCKS * BLOCK / enc_s / 1e9:.4f} GB/s "
+              f"(CLI wall, host CRC and splice included); byte-identical to "
+              f"the oracle ({host_s:.1f} s); {nblk} blocks, the empty one "
+              f"included; launches " + ", ".join(
+                  f"{k.name}={c}" for k, c in zip(all_kernels, launches)))
 
         # ---- 8. round trip: the fused archive decodes on the card
         rt_s, rt_launches = decode_cli(cli, dec_kernels, dev_arc, back)
-        with open(back, "rb") as f:
-            check(f.read() == want, "fused archive did not decode to the input")
+        check(read(back) == want, "fused archive did not decode to the input")
         print(f"round trip: fused archive decoded in {rt_s:.3f} s, exact; "
               "launches " + ", ".join(
                   f"{k.name}={c}" for k, c in zip(dec_kernels, rt_launches)))
 
-        # ---- 9. stage split of block 0's device encode
+        # ---- 9. stage split of block 0's -f0 device encode
         times = {}
         t0 = time.perf_counter()
         crc, payload0 = de.encode_block_device(block0, opt, dev, times)
@@ -348,28 +457,170 @@ def main() -> int:
             first = dd.framing.read_block(f)
         check((crc, payload0) == (first[0].crc, first[1]),
               "block 0 encode differs from the archive's")
-        print("encode block 0 stages (s; device stages synchronized): "
+        print("encode -f0 block 0 stages (s; device stages synchronized): "
               + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
               + f"; block wall {block_s:.3f} s")
 
-    # ---- 10. golden fixture
+        # ---- 10. filter kernel parity at the shapes of an 8 MiB block
+        sblock = structured(BLOCK, 0)
+        s1 = torch.cat([tok, torch.from_numpy(sblock).to(dev)])
+        frows, flens, flens_np = encode_stages.filter_rows(s1)
+        bands, lpc_in, lpc_lens = filters_search.sweep_inputs(frows, flens,
+                                                              flens_np)
+        nval = int(lpc_lens.sum())
+        print(f"shapes: filter stage {s1.numel()} B in {frows.shape[0]} "
+              f"chunks (last {int(flens_np[-1])} B); {lpc_in.shape[0]} LPC "
+              f"lanes")
+        (res,), row = parity(
+            "lpc (encode)",
+            lambda: (lpc.lpc(lpc_in, lpc_lens, False),),
+            lambda: (lpc.lpc_plain(lpc_in, lpc_lens, False),), 5)
+        (dec,), row_d = parity(
+            "lpc (decode)",
+            lambda: (lpc.lpc(res, lpc_lens, True),),
+            lambda: (lpc.lpc_plain(res, lpc_lens, True),), 5)
+        j = torch.arange(lpc_in.shape[1], device=dev)[None, :]
+        check(torch.equal(dec, torch.where(j < lpc_lens[:, None], lpc_in, 0)),
+              "lpc decode did not invert the encode")
+        print(f"lpc: decode {row_d['ms']:.3f} ms (plain "
+              f"{row_d['plain_ms']:.1f} ms), inverts the encode")
+        rows["lpc"] = {**row, **bound(nbytes(lpc_in, lpc_lens, res),
+                                      8 * nval, int(lpc_lens.max()), 5)}
+        lanes = torch.cat(bands + [res])
+        lane_lens = torch.cat([flens.repeat(1 + 2 * 32), lpc_lens])
+        del bands, dec
+        _, _, c_lanes, c_lens = filters_search.f1_candidates(frows, flens)
+        f1_sorted = filters_search.sorted_lanes(c_lanes, c_lens)
+        k7 = {}
+        for label, ln, ll in (("-f2 sweep", lanes, lane_lens),
+                              ("-f1 sorted", f1_sorted, c_lens)):
+            G = filters_search._GROUP
+            groups = [(ln[g:g + G], ll[g:g + G])
+                      for g in range(0, ln.shape[0], G)]
+            err = 0
+            for a, b in groups:
+                d = hist.joint_hist(a, b) - hist.joint_hist_plain(a, b)
+                err = max(err, int(d.abs().max()))
+            check(err == 0, f"joint_hist ({label}) differs from its plain "
+                            f"version (max abs err {err})")
+            ms = cuda_ms(lambda: [hist.joint_hist(a, b) for a, b in groups], 3)
+            plain_ms = cuda_ms(
+                lambda: [hist.joint_hist_plain(a, b) for a, b in groups], 1)
+            lib_ms = cuda_ms(lambda: [torch.bincount(
+                hist.pair_keys(a, b), minlength=a.shape[0] * 65536 + 1)
+                for a, b in groups], 1)
+            moved = nbytes(ln, ll) + ln.shape[0] * 65536 * 4
+            k7[label] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms,
+                         **bound(moved, 6 * int(ll.clamp(min=0).sum()), 64, 4)}
+            print(f"parity joint_hist ({label}): {ln.shape[0]} lanes in "
+                  f"{len(groups)} launches, exact; kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.1f} ms, torch.bincount {lib_ms:.3f} ms, bound "
+                  f"{k7[label]['bound_ms']:.3f} ms")
+        rows["joint_hist"] = k7["-f2 sweep"]
+        del lanes, lane_lens, res
+
+        # ---- 11. -f1: the 32 MiB through the device encode
+        host_arc = os.path.join(tmp, "textlike32.f1.host.jt3")
+        dev_arc = os.path.join(tmp, "textlike32.f1.dev.jt3")
+        host_s = oracle(src, host_arc, F1_FLAGS)
+        f1_s, f1_launches, dev_bytes = encode_cli(cli, all_kernels, src,
+                                                  dev_arc, F1_FLAGS)
+        check(dev_bytes == read(host_arc),
+              "fused -f1 archive differs from the oracle's")
+        nblk = count_blocks(dd.framing, dev_bytes)
+        check(f1_launches[6] >= nblk,
+              f"joint_hist launched {f1_launches[6]} times for {nblk} blocks")
+        print(f"fused -f1 encode: {NBLOCKS * BLOCK} bytes -> {len(dev_bytes)} "
+              f"in {f1_s:.3f} s = {NBLOCKS * BLOCK / f1_s / 1e9:.4f} GB/s; "
+              f"byte-identical to the oracle ({host_s:.1f} s); {nblk} blocks;"
+              " launches " + ", ".join(
+                  f"{k.name}={c}" for k, c in zip(all_kernels, f1_launches)))
+
+        # ---- 12. -f1 on the structured 8 MiB: filters picked and applied
+        ssrc = os.path.join(tmp, "structured8.bin")
+        host_arc = os.path.join(tmp, "structured8.f1.host.jt3")
+        dev_arc = os.path.join(tmp, "structured8.f1.dev.jt3")
+        with open(ssrc, "wb") as f:
+            f.write(sblock.tobytes())
+        host_s = oracle(ssrc, host_arc, F1_FLAGS)
+        f1s_s, f1s_launches, dev_bytes = encode_cli(cli, all_kernels, ssrc,
+                                                    dev_arc, F1_FLAGS)
+        check(dev_bytes == read(host_arc),
+              "fused -f1 archive of the structured block differs from the "
+              "oracle's")
+        check(f1s_launches[6] > 0, "the structured -f1 encode did not run "
+                                   "joint_hist")
+        picks = filters_search.pick_f1_configs(s1)
+        kinds = {name: sum(1 for t, w in picks if w and t == k)
+                 for k, name in enumerate(("delta", "lpc", "inline"))}
+        kinds["raw"] = sum(1 for _, w in picks if not w)
+        check(kinds["raw"] < len(picks),
+              "no -f1 chunk of the structured block picked a filter")
+        print(f"fused -f1 encode (structured): {BLOCK} bytes -> "
+              f"{len(dev_bytes)} in {f1s_s:.3f} s; byte-identical to the "
+              f"oracle ({host_s:.1f} s); picks {kinds}; launches " + ", ".join(
+                  f"{k.name}={c}" for k, c in zip(all_kernels, f1s_launches)))
+        f1s_dec_s, _ = decode_cli(cli, dec_kernels, dev_arc, back)
+        check(read(back) == sblock.tobytes(),
+              "the structured -f1 archive did not decode to the input")
+        print(f"-f1 decode (structured): {f1s_dec_s:.3f} s, exact")
+
+        # ---- 13. -f2: the structured 8 MiB, encode then decode
+        host_arc = os.path.join(tmp, "structured8.f2.host.jt3")
+        dev_arc = os.path.join(tmp, "structured8.f2.dev.jt3")
+        host_s = oracle(ssrc, host_arc, F2_FLAGS)
+        f2_s, f2_launches, dev_bytes = encode_cli(cli, all_kernels, ssrc,
+                                                  dev_arc, F2_FLAGS)
+        check(dev_bytes == read(host_arc),
+              "fused -f2 archive differs from the oracle's")
+        check(f2_launches[6] > 0 and f2_launches[7] > 0,
+              "the -f2 encode did not run joint_hist and lpc")
+        print(f"fused -f2 encode: {BLOCK} structured bytes -> "
+              f"{len(dev_bytes)} in {f2_s:.3f} s; byte-identical to the "
+              f"oracle ({host_s:.1f} s); launches " + ", ".join(
+                  f"{k.name}={c}" for k, c in zip(all_kernels, f2_launches)))
+        f2_dec_s, f2_dec = decode_cli(cli, dec_kernels + [lpc.KERNEL],
+                                      dev_arc, back)
+        check(read(back) == sblock.tobytes(),
+              "the -f2 archive did not decode to the input")
+        print(f"-f2 decode: {f2_dec_s:.3f} s, exact; lpc (decode direction) "
+              f"launched {f2_dec[-1]} times, so some chunk picked LPC")
+
+        # ---- 14. stage splits of block 0's -f1 and -f2 encodes
+        for label, data, filters in (("-f1", block0, 1),
+                                     ("-f1 structured", sblock, 1),
+                                     ("-f2", sblock, 2)):
+            opt.filters = filters
+            times = {}
+            t0 = time.perf_counter()
+            de.encode_block_device(data, opt, dev, times)
+            block_s = time.perf_counter() - t0
+            print(f"encode {label} block 0 stages (s; device stages "
+                  "synchronized): "
+                  + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
+                  + f"; block wall {block_s:.3f} s")
+
+    # ---- 15. golden fixture
     import io
 
     fixtures = os.path.join(HERE, "tests", "fixtures")
-    with open(os.path.join(fixtures, "golden_jt3_prod_u960_L4_c16_Sa.jt3"), "rb") as f:
-        gold_arc = f.read()
-    with open(os.path.join(fixtures, "golden_input.bin"), "rb") as f:
-        gold = f.read()
+    gold_arc = read(os.path.join(fixtures, "golden_jt3_prod_u960_L4_c16_Sa.jt3"))
+    gold = read(os.path.join(fixtures, "golden_input.bin"))
     out = io.BytesIO()
     dd.decompress_stream_device(io.BytesIO(gold_arc), out, dev)
     check(out.getvalue() == gold, "golden JT3 fixture decoded wrongly")
     print(f"golden: golden_jt3_prod_u960_L4_c16_Sa.jt3 -> {len(gold)} bytes, exact")
 
+    # launches: each kernel's count on the path that runs it (decode, the
+    # -f0 encode, the -f1 encode for K7, the -f2 encode for K8)
+    path_launches = dec_launches + enc_launches + [f1_launches[6],
+                                                   f2_launches[7]]
+    check("jampack_tpu" not in sys.modules, "the JAX package was imported")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": c, **row}
-        for k, c, row in zip(dec_kernels + enc_kernels,
-                             launches + enc_launches, rows)]}))
+         "replaces": k.replaces, "launches": c, **rows[k.name]}
+        for k, c in zip(all_kernels, path_launches)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """jampack_tpu_torch: the PyTorch/CUDA port of the jampack_tpu block codec.
 
-Decodes JT3/JTX/JAM block archives on an NVIDIA H100.  The serial loops of
-the decode chain (wide rANS, SRC rank, inverse-BWT chase) are CUDA kernels
-written by hand for sm_90a (csrc/); the rest of the chain is plain PyTorch.
-Format parsing, framing, checksums and the host encoder are shared with
-jampack_tpu, which stays the reference this package is held against.
+Decodes JT3/JTX block archives and encodes the store configuration (-m3,
+-f0/-f1/-f2, Lpx spans 0) on an NVIDIA H100.  The serial loops and the
+histogram of the chains are CUDA kernels written by hand for sm_90a
+(csrc/); the rest is plain PyTorch.  The package stands alone: it imports
+torch and numpy, never jax and never jampack_tpu, and keeps its own copies
+of the format (format/), the options record (runtime/options.py) and the
+host-side stage framing (stages/).  jampack_tpu stays the reference this
+package is held against in the tests.
 """
 
 __version__ = "0.1.0"

@@ -1,35 +1,40 @@
 """Command line of the port.
 
     python -m jampack_tpu_torch.cli d archive output [--device cuda|cpu]
-    python -m jampack_tpu_torch.cli c input archive [-b# -m# -f# -t# -u# -c# -L# -S# -Sa]
-    python -m jampack_tpu_torch.cli c input archive --engine fused -m3 -f0 -S0 [-b# -u# -c# -L#] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli c input archive -m3 -f0|-f1|-f2 -S0 [-b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
 
-d decodes on the GPU.  c is the shared host encoder (jampack_tpu's native
-C++ engine), not a device path.  c --engine fused encodes on the GPU, every
-block of any length, in the configuration the port has: -m3 (store), -f0
-and Lpx spans 0 (-S0).  It refuses -m0/-m1/-m2 (the host-LZ route),
--f1/-f2 (the device filter search) and spans other than 0 (the Lpx encode)
-with a message naming what is not ported yet.  The device defaults to cuda;
-there is no fallback to the CPU: --device cpu runs the plain PyTorch
-versions of the kernels and exists for tests.  Other flags are
-jampack_tpu.cli's.
+d decodes on the GPU.  c encodes on the GPU (--engine fused, the only
+engine and the default), every block of any length, in the configurations
+the port has: -m3 (store), -f0/-f1/-f2 (the filter search on the device)
+and Lpx spans 0 (-S0).  It refuses -m0/-m1/-m2 (the host-LZ route), -f3
+and spans other than 0 (the Lpx encode) with a message naming what is not
+ported yet; `python -m jampack_tpu.cli c` encodes those on the host.  The
+device defaults to cuda; there is no fallback to the CPU: --device cpu
+runs the plain PyTorch versions of the kernels and exists for tests.
+Flags and messages are jampack_tpu.cli's (_parse is a copy).
 """
 
 import sys
 import time
 
-from jampack_tpu.cli import _parse
-from jampack_tpu.runtime.engines import NativeEngine
-from jampack_tpu.runtime.pipeline import LZ_MODE_STORE, compress_stream
-
+from .format.constants import DEFAULT_BLOCKSIZE, MAX_BLOCKSIZE, MIN_BLOCKSIZE
 from .runtime.device_decode import decompress_stream_device
 from .runtime.device_encode import compress_stream_device
+from .runtime.options import (
+    LZ_MODE_STORE,
+    Options,
+    validate_lpx_spans,
+    validate_match_finder,
+    validate_rans_lanes,
+)
+
+HOST_ENCODE = "python -m jampack_tpu.cli c"
 
 
 def _split_flags(argv):
     """(argv without --device/--engine, the device or 'cuda', the engine or
-    'native'); each takes `--flag value` or `--flag=value`."""
-    rest, found, i = [], {"--device": "cuda", "--engine": "native"}, 0
+    'fused'); each takes `--flag value` or `--flag=value`."""
+    rest, found, i = [], {"--device": "cuda", "--engine": "fused"}, 0
     while i < len(argv):
         arg = argv[i]
         name = arg.split("=", 1)[0]
@@ -47,17 +52,76 @@ def _split_flags(argv):
     return rest, found["--device"], found["--engine"]
 
 
+def _parse(argv):
+    """(mode, input, output, Options) from the reference's flags
+    (main.cpp:65-89 semantics) and the JTX/JT3 stream parameters; a copy
+    of jampack_tpu.cli._parse without its engine choice."""
+    mode, inp, outp = argv[1], argv[2], argv[3]
+    if inp == outp:
+        raise SystemExit("Refusing to write to input, change the output directory.")
+    opt = Options(blocksize=DEFAULT_BLOCKSIZE, match_finder=0, filters=1)
+    threads = 0
+    multiblock = True
+    for arg in argv[4:]:
+        if arg.startswith("--"):
+            if arg != "--verbose":
+                raise SystemExit(f"Unknown option: {arg}")
+        elif arg.startswith("-") and len(arg) >= 2:
+            p = arg[1:]
+            while p:
+                c = p[0]
+                rest = p[1:]
+                num = ""
+                while rest and (rest[0].isdigit()):
+                    num += rest[0]
+                    rest = rest[1:]
+                if c == "b" and num:
+                    # in place, so stream parameters set by earlier flags
+                    # survive regardless of flag order
+                    opt.blocksize = int(min(max(int(num) << 20,
+                                                MIN_BLOCKSIZE),
+                                            MAX_BLOCKSIZE))
+                elif c == "u" and num:
+                    opt.anchor_units = int(num)  # native JTX container
+                elif c == "c" and num:
+                    opt.ans_chunk = int(num) << 10  # ANS chunk in KB
+                elif c == "L" and num:
+                    opt.rans_lanes = validate_rans_lanes(int(num))
+                elif c == "S" and num:
+                    opt.lpx_spans = validate_lpx_spans(int(num))
+                elif c == "S" and rest[:1] == "a":
+                    opt.lpx_auto = True
+                    rest = rest[1:]
+                elif c == "m" and num:
+                    opt.match_finder = validate_match_finder(int(num))
+                elif c == "f" and num:
+                    opt.filters = int(num)
+                elif c == "t" and num:
+                    threads = int(num)
+                elif c == "T":
+                    multiblock = False
+                elif c == "v":
+                    pass
+                else:
+                    raise SystemExit(f"Unknown option character "
+                                     f"'{c}' in {arg}")
+                p = rest
+    opt.threads = threads
+    opt.multiblock = multiblock
+    return mode, inp, outp, opt
+
+
 def _fused_unsupported(opt) -> str:
-    """Why --engine fused cannot encode with `opt`, or '' when it can."""
+    """Why the device encode cannot encode with `opt`, or '' when it can."""
     if opt.match_finder != LZ_MODE_STORE:
         return (f"-m{opt.match_finder}: the host-LZ encode route is not "
-                f"ported yet (use -m3)")
-    if opt.filters != 0:
-        return (f"-f{opt.filters}: the device filter search is not ported "
-                f"yet (use -f0)")
+                f"ported yet (use -m3, or {HOST_ENCODE} for a host encode)")
+    if opt.filters not in (0, 1, 2):
+        return (f"-f{opt.filters}: the -f3 device filter search is not "
+                f"ported yet (use -f0/-f1/-f2, or {HOST_ENCODE})")
     if opt.lpx_spans != 0:
         return (f"Lpx spans {opt.lpx_spans}: the Lpx encode stage is not "
-                f"ported yet (use -S0)")
+                f"ported yet (use -S0, or {HOST_ENCODE} for a host encode)")
     return ""
 
 
@@ -66,25 +130,22 @@ def run(argv) -> int:
     if len(argv) < 4:
         print(__doc__)
         return 0
-    mode, inp, outp, opt, _ = _parse(argv)
-    if engine not in ("native", "fused") or (engine == "fused" and mode != "c"):
-        raise SystemExit("the port's only --engine choice is fused, for c")
-    if engine == "fused" and (why := _fused_unsupported(opt)):
+    mode, inp, outp, opt = _parse(argv)
+    if mode not in ("c", "d"):
+        raise SystemExit("Invalid option!")
+    if engine != "fused":
+        raise SystemExit(f"--engine {engine}: the port's only engine is "
+                         f"fused (the host engines: {HOST_ENCODE})")
+    if mode == "c" and (why := _fused_unsupported(opt)):
         raise SystemExit(f"--engine fused: {why}")
     start = time.time()
     with open(inp, "rb") as fin, open(outp, "wb") as fout:
-        if mode == "c" and engine == "fused":
+        if mode == "c":
             raw, comp = compress_stream_device(fin, fout, opt, device)
             label = f"device encode: {device}"
-        elif mode == "c":
-            raw, comp = compress_stream(fin, fout, opt,
-                                        NativeEngine(threads=opt.threads))
-            label = "host encode: native"
-        elif mode == "d":
+        else:
             comp, raw = decompress_stream_device(fin, fout, device)
             label = f"device decode: {device}"
-        else:
-            raise SystemExit("Invalid option!")
     dt = time.time() - start
     ratio = (comp / raw * 100) if raw else 0.0
     rate = (raw / 1e6) / dt if dt > 0 else 0.0

@@ -12,11 +12,11 @@ part, with two differences that follow from PyTorch running eagerly:
   parse) stay host ints; per-stage ok flags stay device tensors until the
   block's one final check.
 
-The chain's three serial walks are hand-written CUDA kernels (rans.py,
-rank.py, ibwt.py); the rest is plain PyTorch.  The LZ token parse loops
-over tokens in Python, reading each token's 16-byte window from the
-buffer; text streams carry a single end token.  The LPC filter recurrence
-is a plain PyTorch loop that runs only when some chunk chose LPC.
+The chain's serial walks are hand-written CUDA kernels (rans.py, rank.py,
+ibwt.py, and lpc.py for the LPC filter recurrence of the chunks that chose
+LPC); the rest is plain PyTorch.  The LZ token parse loops over tokens in
+Python, reading each token's 16-byte window from the buffer; text streams
+carry a single end token.
 """
 
 import time
@@ -25,15 +25,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jampack_tpu.format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
-from jampack_tpu.format.varint import CONSTANTS as _VARINT_CONSTANTS
+from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
+from ..format.varint import CONSTANTS as _VARINT_CONSTANTS
 
 from .ibwt import chase, combined_map
+from .lpc import lpc
 from .rank import rank_decode
 from .rans import decode_lanes_wide
 
 _FBS = FILTER_BLOCK_SIZE
-_WEIGHT_RATE = 6  # filters.cpp:44
 _I32_MAX = 2**31 - 1
 
 
@@ -237,7 +237,8 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
     Chunk k's (type, width) header sits at k * (FBS + 2); its payload
     length is min(FBS, m - hdr - 2).  Delta is a cumsum, inline delta a
     stride-doubling prefix sum, the channel unreorder a gather; the serial
-    LPC recurrence loops over positions only when some chunk chose LPC.
+    LPC recurrence (K8, decode direction) runs over the chunks that chose
+    LPC, when there are any.
     out_cap bounds the output as the JAX stage does.
     Returns (out (out_len,) uint8, out_len, ok (0-d bool tensor))."""
     dev = buf.device
@@ -258,7 +259,8 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
 
     jj = torch.arange(_FBS, device=dev)[None, :]
     inb = jj < plen
-    C = torch.where(inb, bp[:, 2:], 0).to(torch.int32)
+    C8 = torch.where(inb, bp[:, 2:], 0)
+    C = C8.to(torch.int32)
     w = width.clamp(min=1)
     flags = torch.stack([((ftype <= 1) & (width > 0)).any(),
                          ((ftype == 1) & (width > 0)).any(),
@@ -268,7 +270,12 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
     dec01 = C
     if any_01:
         dec_delta = torch.cumsum(C, 1, dtype=torch.int32) & 0xFF
-        dec_lpc = _lpc(C, ftype, width, plen_np) if any_lpc else C
+        if any_lpc:
+            lpc_lens = torch.where((ftype == 1) & (width > 0), plen, 0)
+            dec_lpc = lpc(C8, lpc_lens[:, 0].to(torch.int32), True).to(
+                torch.int32)
+        else:
+            dec_lpc = C
         # unreorder: original position p came from reordered index
         # base(p % w) + p // w with base(c) = c * (L // w) + min(c, L % w)
         ch = jj % w
@@ -292,28 +299,6 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
     out_len = int(plen_np.sum())
     flat = torch.where(inb, dec, 0).to(torch.uint8).reshape(-1)
     return flat[:max(out_len, 0)], out_len, ok
-
-
-def _lpc(C, ftype, width, plen_np):
-    """The LPC recurrence (filters.cpp LPC decode), every chunk in lockstep;
-    runs max(plen of LPC chunks) steps."""
-    K = C.shape[0]
-    plen = torch.as_tensor(plen_np, device=C.device)
-    lpc = ((ftype == 1) & (width > 0))[:, 0].cpu().numpy()
-    steps = int(np.max(np.where(lpc, plen_np, 0)))
-    out = torch.zeros_like(C)
-    z = torch.zeros(K, dtype=torch.int32, device=C.device)
-    weight, p1, p2 = z, z, z
-    for i in range(steps):
-        active = i < plen
-        err = C[:, i]
-        cur = (weight + (((p1 - p2) + p1) - err)) & 0xFF
-        nw = weight + ((err - weight) >> _WEIGHT_RATE)
-        out[:, i] = torch.where(active, cur, out[:, i])
-        weight = torch.where(active, nw, weight)
-        p2 = torch.where(active, p1, p2)
-        p1 = torch.where(active, cur, p1)
-    return out
 
 
 # ---------------------------------------------------------------------------

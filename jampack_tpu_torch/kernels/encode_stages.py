@@ -1,17 +1,20 @@
 """The per-block encode chain on the device, stage by stage.
 
 Counterpart of jampack_tpu/kernels/encode_stages.py in the store
-configuration (-m3 -f0, Lpx skipped):
+configuration (-m3, Lpx skipped):
 
-    LZ store framing -> -f0 filter headers -> LZ store framing
+    LZ store framing -> filters (-f0 headers, or the picked -f1/-f2
+    configs applied per 64 KiB chunk) -> LZ store framing
     -> forward BWT + anchors -> per chunk: SRC rank -> RLE0 -> lane deal
     -> per chain: model pass -> reverse interleaved rANS
 
-Every stage length is a function of the block length alone.  Tensors are
-sized by those lengths (the JAX chain's pow2 capacities bound its jit
-variants; PyTorch runs eagerly).  The serial walks are hand-written CUDA
-kernels: the SRC rank encode (K6, here), the model pass (K4) and the
-reverse rANS (K5) in rans_encode.py; the rest is plain PyTorch.
+Every stage length is a function of the block length alone (a filter
+config changes bytes, not lengths).  Tensors are sized by those lengths
+(the JAX chain's pow2 capacities bound its jit variants; PyTorch runs
+eagerly).  The serial walks are hand-written CUDA kernels: the SRC rank
+encode (K6, here), the LPC filter recurrence (K8, lpc.py), the model pass
+(K4) and the reverse rANS (K5) in rans_encode.py; the rest is plain
+PyTorch.
 """
 
 import time
@@ -20,10 +23,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from jampack_tpu.format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
-from jampack_tpu.stages.lz77 import write_token
+from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
+from ..stages.lz77 import write_token
 
 from ._build import Kernel, ptr, stream_of
+from .lpc import lpc
 from .rans_encode import model_pairs_wide, rans_reverse_encode_wide
 from .sa import forward_bwt
 
@@ -162,22 +166,86 @@ def rank_encode_plain(chunks, olens):
 # The fused block encode
 
 
-def bwt_stage(data: torch.Tensor, units: int) -> torch.Tensor:
-    """Stages 1-5 of the store configuration: the input of the entropy
-    stage, [BWT | n3 % units raw bytes | units anchors]."""
-    dev = data.device
-    # 1. LZ store + 2. -f0 filters: [token | data] dealt into 64 KB rows,
-    # each behind its zero (type, width) header (filters.cpp:416-427)
-    tok = torch.as_tensor(END_TOKEN, device=dev)
-    n1 = data.numel() + tok.numel()
-    nf = ceil_div(n1, _FBS)
-    rows1 = torch.zeros(nf * _FBS, dtype=torch.uint8, device=dev)
-    rows1[:n1] = torch.cat([tok, data])
-    hdr = torch.zeros(nf, 2, dtype=torch.uint8, device=dev)
-    s2 = torch.cat([hdr, rows1.view(nf, _FBS)], 1).reshape(-1)[:n1 + 2 * nf]
-    # 3. Lpx skipped (spans 0); 4. the second LZ store framing; 5. forward
-    # BWT: trailing n3 % units bytes raw, anchors appended
-    return forward_bwt(torch.cat([tok, s2]), units)
+def reorder_idx(lens: torch.Tensor, w: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, W) gather indices of the channel reorder of each row's first
+    lens[b] bytes at width w[b] (filters.cpp:85-99): reordered[j] =
+    row[src[j]], channel-major; 0 past the length (_reorder_idx, one row
+    per lane).  lens, w: (B,) int tensors, w >= 1."""
+    j = torch.arange(W, device=lens.device)[None, :]
+    L, w = lens.long()[:, None], w.long()[:, None]
+    per = torch.div(L, w, rounding_mode="floor")  # full rows per channel
+    extra = L - per * w  # channels with one extra element
+    boundary = extra * (per + 1)
+    head = j < boundary
+    q = torch.where(head, per + 1, per).clamp(min=1)
+    k = torch.where(head, j, j - extra)
+    c = torch.div(k, q, rounding_mode="floor")
+    src = (k - c * q) * w + c
+    return torch.where(j < L, src.clamp(0, W - 1), 0)
+
+
+def filters_apply_rows(rows: torch.Tensor, plens: torch.Tensor,
+                       ftype: torch.Tensor, width: torch.Tensor):
+    """Apply each chunk row's (type, width) filter config, every row at once
+    (filters.cpp:21-142, encode direction; _filters_apply_rows).
+
+    rows: (F, W) uint8; plens, ftype, width: (F,) int32 on rows' device.
+    Width 0 is raw; type 0 is delta and type 1 LPC (K8), both over the
+    channel-reordered row and stored reordered; type 2 is the in-place
+    per-channel delta, its first align + w bytes raw.  Returns (F, W)
+    uint8, zero past each row's length."""
+    W = rows.shape[1]
+    r32 = rows.to(torch.int32)
+    w = width.clamp(min=1)
+    j = torch.arange(W, device=rows.device)[None, :]
+    inb = j < plens[:, None]
+    reordered = torch.where(inb, r32.gather(1, reorder_idx(plens, w, W)), 0)
+    delta = (reordered - F.pad(reordered, (1, 0))[:, :-1]) & 0xFF
+    is_lpc = (ftype == 1) & (width > 0)
+    lpc_out = reordered
+    if bool(is_lpc.any()):
+        lpc_out = lpc(reordered.to(torch.uint8),
+                      torch.where(is_lpc, plens, 0).to(torch.int32),
+                      False).to(torch.int32)
+    align = (plens % w)[:, None]
+    back = j - w[:, None]
+    prev = r32.gather(1, back.clamp(0, W - 1))
+    inline = (r32 - torch.where(back >= align, prev, 0)) & 0xFF
+    t = ftype[:, None]
+    out = torch.where(t == 2, inline, torch.where(t == 1, lpc_out, delta))
+    out = torch.where(width[:, None] > 0, out, r32)
+    return torch.where(inb, out, 0).to(torch.uint8)
+
+
+def filter_rows(data: torch.Tensor):
+    """data's 64 KiB filter chunks as zero-padded (F, FBS) uint8 rows,
+    F >= 1, with their (F,) int32 lengths on the device and as numpy."""
+    n = data.numel()
+    nf = max(ceil_div(n, _FBS), 1)
+    rows = F.pad(data, (0, nf * _FBS - n)).view(nf, _FBS)
+    lens_np = np.clip(n - _FBS * np.arange(nf), 0, _FBS).astype(np.int32)
+    return rows, torch.as_tensor(lens_np, device=data.device), lens_np
+
+
+def filter_stage(s1: torch.Tensor, fconfigs=None) -> torch.Tensor:
+    """Stage 2: the stage-1 bytes (n1 >= 1) dealt into 64 KiB chunk rows,
+    each row behind its (type, width) header and transformed by its config
+    (filters.cpp:416-427).  fconfigs: None for -f0 (zero headers, rows as
+    they are), else the (F, 2) int32 picks of the filter search.  Returns
+    the (n1 + 2 F,) uint8 stage."""
+    dev = s1.device
+    rows1, plens, _ = filter_rows(s1)
+    nf = rows1.shape[0]
+    if fconfigs is None:
+        hdr = torch.zeros(nf, 2, dtype=torch.uint8, device=dev)
+    else:
+        fc = torch.as_tensor(np.asarray(fconfigs, np.int32).reshape(nf, 2),
+                             device=dev)
+        ftype, width = fc[:, 0], fc[:, 1]
+        rows1 = filters_apply_rows(rows1, plens, ftype, width)
+        hdr = torch.stack([torch.where(width > 0, ftype, 0), width],
+                          1).to(torch.uint8)
+    return torch.cat([hdr, rows1], 1).reshape(-1)[:s1.numel() + 2 * nf]
 
 
 def chunk_rows(s4: torch.Tensor, chunk: int):
@@ -210,17 +278,14 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
                       chunk: int, lanes: int, lpx_spans: int = 0,
                       times: dict = None):
     """The whole per-block encode chain on data's device, in the store
-    configuration (-m3), filters off (-f0) and Lpx skipped (spans 0).
+    configuration (-m3) with Lpx skipped (spans 0).
 
-    data: (n,) uint8, any n >= 0.  Returns (bufs (NL, 4*max_rlen+16)
+    data: (n,) uint8, any n >= 0.  fconfigs: None for -f0, else the (F, 2)
+    int32 (type, width) picks of the filter search.  Returns (bufs (NL, 4*max_rlen+16)
     uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C, 256) int32,
     rlens (C,) int32) for the host splicer: NL = C * max(lanes, 1) chains
     in chunk-major order, chain payload l = bufs[l, ptrs[l]:].  With a dict
     `times`, each stage is synchronized and its wall seconds recorded."""
-    if fconfigs is not None:
-        raise NotImplementedError(
-            "the -f1/-f2 filter stage (device filter search) is not ported "
-            "yet")
     if lpx_spans > 0:
         raise NotImplementedError("the Lpx encode stage is not ported yet")
     dev = data.device
@@ -235,7 +300,13 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
             times[name] = times.get(name, 0.0) + now - t0
             t0 = now
 
-    s4 = bwt_stage(data, units)
+    # 1. LZ store framing; 2. filters; 3. Lpx skipped (spans 0); 4. the
+    # second LZ store framing; 5. forward BWT: trailing n3 % units bytes
+    # raw, anchors appended
+    tok = torch.as_tensor(END_TOKEN, device=dev)
+    s2 = filter_stage(torch.cat([tok, data]), fconfigs)
+    mark("filters")
+    s4 = forward_bwt(torch.cat([tok, s2]), units)
     mark("bwt")
     # 6. entropy, every chunk at once: rank -> RLE0 -> lane deal
     rows, olens = chunk_rows(s4, chunk)

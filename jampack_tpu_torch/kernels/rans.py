@@ -12,7 +12,7 @@ runs decode_lanes_wide_plain for a CPU tensor.
 import torch
 import torch.nn.functional as F
 
-from jampack_tpu.format.constants import PROB_BITS, PROB_SCALE, RANS_BYTE_L
+from ..format.constants import PROB_BITS, PROB_SCALE, RANS_BYTE_L
 
 from . import rans_common as rc
 from ._build import Kernel, ptr, stream_of

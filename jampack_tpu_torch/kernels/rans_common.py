@@ -2,8 +2,8 @@
 plain PyTorch model update that the decode and encode passes share.
 
 The codec has no weights; the state it carries across chunks is these
-tables, rebuilt here from jampack_tpu.format alone (the JAX package keeps
-them in kernels/rans_common.py and kernels/rans_wide.py, which import jax).
+tables, rebuilt here from the port's format/ alone (the JAX package keeps
+them in kernels/rans_common.py and kernels/rans_wide.py).
 
 Model bank layout (rans_wide's): the 9 models of a chain (1 exponent, 2
 adaptive mantissa, 6 quasi mantissa; alphabets 8/2/2/4/8/16/32/64/129) keep
@@ -16,13 +16,13 @@ is bank[BOFF[k]:BOFF[k+1]].  The quasi counts take QOFF[k]:QOFF[k+1] of a
 import numpy as np
 import torch
 
-from jampack_tpu.format.constants import (
+from ..format.constants import (
     MAX_MODELS,
     MODEL_SWITCH_THRESHOLD,
     PROB_BITS,
     PROB_SCALE,
 )
-from jampack_tpu.format.tables import EXPONENT, MODEL_ALPHABET
+from ..format.tables import EXPONENT, MODEL_ALPHABET
 
 RATE = 5                    # model.hpp:34 mixing shift
 UPDATE_RATE = 64 << 10      # model.hpp:46 largest quasi rescale period

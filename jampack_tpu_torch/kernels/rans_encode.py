@@ -15,7 +15,7 @@ tensor; each runs its plain version for a CPU tensor.
 
 import torch
 
-from jampack_tpu.format.constants import PROB_BITS, PROB_SCALE, RANS_BYTE_L
+from ..format.constants import PROB_BITS, PROB_SCALE, RANS_BYTE_L
 
 from . import rans_common as rc
 from ._build import Kernel, ptr, stream_of

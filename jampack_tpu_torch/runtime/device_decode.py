@@ -1,10 +1,10 @@
 """Decode framed blocks on the GPU.
 
-The host parses only format metadata (chunk headers, lane tables, via the
-shared jampack_tpu.runtime.device_decode.block_meta); every O(n) stage runs
-on the device (kernels/device_stages.decode_block_core).  The CRC is
-checked on the host after the fetch, as the reference checks after its
-chain (jampack.cpp:56-57).
+The host parses only format metadata (chunk headers, lane tables:
+block_meta below, the port's copy of jampack_tpu/runtime/device_decode.py's);
+every O(n) stage runs on the device (kernels/device_stages.decode_block_core).
+The CRC is checked on the host after the fetch, as the reference checks
+after its chain (jampack.cpp:56-57).
 
 There is no fallback: a block the port cannot decode on the device (Lpx
 spans > 0) raises NotImplementedError, a corrupt block raises ValueError,
@@ -16,12 +16,76 @@ import time
 import numpy as np
 import torch
 
-from jampack_tpu.format import framing
-from jampack_tpu.format.checksum import integrity_check
-from jampack_tpu.runtime.device_decode import block_meta, plan_shapes
-
 from ..device import resolve
+from ..format import framing
+from ..format.checksum import integrity_check
+from ..format.constants import ANS_CHUNK_SIZE
 from ..kernels.device_stages import decode_block_core
+from ..stages.ans import lane_rlen, read_chunk_header, read_lane_table
+
+
+def _pow2(x: int, lo: int = 8) -> int:
+    n = lo
+    while n < x:
+        n <<= 1
+    return n
+
+
+def block_meta(payload: bytes, lanes: int):
+    """Parse every chunk header + lane table out of a block payload.
+
+    Returns dict of unpadded numpy arrays: starts/rlens per chain (for
+    lanes >= 2, chunk c owns chain rows [c*lanes, (c+1)*lanes)), per-chunk
+    olen/rlen, and the (C, 256) rank frequency tables.
+    """
+    view = memoryview(payload)
+    pos = 0
+    starts, rlens = [], []
+    olens, crlens, ftabs = [], [], []
+    while pos < len(view):
+        freqs, olen, clen, rlen, pos = read_chunk_header(view, pos)
+        if lanes >= 2:
+            lane_clens, p = read_lane_table(view, pos, rlen, lanes)
+            if sum(lane_clens) != clen - (p - pos):
+                raise ValueError("corrupt lane table")
+            starts.extend(np.cumsum([p] + lane_clens[:-1]).tolist())
+            rlens.extend(lane_rlen(rlen, lanes, l) for l in range(lanes))
+        else:
+            starts.append(pos)
+            rlens.append(rlen)
+        olens.append(olen)
+        crlens.append(rlen)
+        ftabs.append(freqs)
+        pos += clen
+    return {
+        "starts": np.asarray(starts, np.int32),
+        "rlens": np.asarray(rlens, np.int32),
+        "chunk_olens": np.asarray(olens, np.int32),
+        "chunk_rlens": np.asarray(crlens, np.int32),
+        "freqs": np.asarray(ftabs, np.int32).reshape(len(olens), 256),
+    }
+
+
+def plan_shapes(metas, payload_lens, blocksize: int, lanes: int):
+    """The JAX chain's capacities for a batch of blocks (pow2-bucketed
+    there to bound its jit variants).  The port sizes its buffers by
+    actual lengths and reads only out_cap and max_tokens, the bounds of
+    the LZ and filter stages (the reference's 1.05x stage buffers,
+    MB-rounded)."""
+    cmax = _pow2(max((m["chunk_olens"].size for m in metas), default=1), 1)
+    lmax = cmax * max(lanes, 1)
+    rmax = _pow2(max((int(m["rlens"].max()) if m["rlens"].size else 1)
+                     for m in metas), 16)
+    ocap = _pow2(max((int(m["chunk_olens"].max()) if m["chunk_olens"].size
+                      else 1) for m in metas), 16)
+    ocap = min(ocap, _pow2(ANS_CHUNK_SIZE))
+    pcap = _pow2(max(payload_lens), 64)
+    need = int(blocksize * 1.05) + 1024
+    mb = 1 << 20
+    out_cap = _pow2(need) if need < mb else ((need + mb - 1) // mb) * mb
+    max_tokens = max(out_cap // 256, 4096)
+    return dict(cmax=cmax, lmax=lmax, rmax=rmax, ocap=ocap, pcap=pcap,
+                out_cap=out_cap, max_tokens=max_tokens)
 
 
 def decode_block_device(payload: bytes, crc: int, blocksize: int,
@@ -39,8 +103,6 @@ def decode_block_device(payload: bytes, crc: int, blocksize: int,
     dev = resolve(device)
     t0 = time.perf_counter()
     meta = block_meta(payload, lanes)
-    # the LZ/filter bounds of the JAX chain (the reference's 1.05x stage
-    # buffers, MB-rounded); the port sizes its buffers by actual lengths
     shapes = plan_shapes([meta], [len(payload)], blocksize, lanes)
     pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(dev)
     t1 = time.perf_counter()

@@ -6,11 +6,12 @@ CRC (the shared format.checksum, as decode checks it) and splices format
 metadata (chunk headers, lane tables) around the device-made chain
 payloads, which are compacted on the device and fetched once.
 
-Supported configuration: match_finder=3 (store), filters=0, Lpx spans 0,
-at every block length from 0 up; archives are byte-identical to the host
-engines' at the same Options.  Anything else raises NotImplementedError
-naming the stage that is not ported yet; there is no host route, and
-asking for CUDA without a card raises RuntimeError.
+Supported configuration: match_finder=3 (store), filters 0, 1 or 2 (the
+-f1/-f2 config search runs on the device, kernels/filters_search.py), Lpx
+spans 0, at every block length from 0 up; archives are byte-identical to
+the host engines' at the same Options.  Anything else raises
+NotImplementedError naming the stage that is not ported yet; there is no
+host route, and asking for CUDA without a card raises RuntimeError.
 """
 
 import time
@@ -18,20 +19,32 @@ import time
 import numpy as np
 import torch
 
-from jampack_tpu.format import framing
-from jampack_tpu.format.checksum import integrity_check
-from jampack_tpu.format.constants import ANS_CHUNK_SIZE, FILTER_BLOCK_SIZE
-from jampack_tpu.format.varint import encode_leb128
-from jampack_tpu.runtime.pipeline import LZ_MODE_STORE, Options
-from jampack_tpu.stages.ans import write_chunk_header
+from ..format import framing
+from ..format.checksum import integrity_check
+from ..format.constants import ANS_CHUNK_SIZE, FILTER_BLOCK_SIZE
+from ..format.varint import encode_leb128
+from ..stages.ans import write_chunk_header
+from .options import LZ_MODE_STORE, Options
 
 from ..device import resolve
 from ..kernels.encode_stages import END_TOKEN, ceil_div, encode_block_core
+from ..kernels.filters_search import pick_f1_configs, pick_f2_configs
 
 
 def _add(times, key, seconds):
     if times is not None:
         times[key] = times.get(key, 0.0) + seconds
+
+
+def filter_configs(s1: torch.Tensor, filters: int):
+    """The (F, 2) int32 per-64 KiB-chunk (type, width) picks of the filter
+    stage over the stage-1 bytes s1 (on their device), or None for -f0.
+    The picks are the host engines' (the device search re-scores its
+    near-ties in float64)."""
+    if filters == 0:
+        return None
+    pick = pick_f1_configs if filters == 1 else pick_f2_configs
+    return np.asarray(pick(s1), np.int32).reshape(-1, 2)
 
 
 def encode_block_device(data: np.ndarray, opt: Options, device="cuda",
@@ -50,15 +63,16 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
                            times: dict = None):
     """(crc, payload bytes, lpx_spans_used): the device mirror of
     pipeline.compress_block_ex.  With a dict `times`, per-stage wall seconds
-    are added to it: host_crc, h2d, the synchronized device stages of
-    encode_block_core, then d2h and splice."""
+    are added to it: host_crc, h2d, search (the -f1/-f2 config search), the
+    synchronized device stages of encode_block_core, then d2h and
+    splice."""
     if opt.match_finder != LZ_MODE_STORE:
         raise NotImplementedError(
             "device encode runs -m3 (store) only: the host-LZ route for "
             "-m0/-m1/-m2 is not ported yet")
-    if opt.filters != 0:
+    if opt.filters not in (0, 1, 2):
         raise NotImplementedError(
-            "device encode runs -f0 only: the -f1/-f2 device filter search "
+            "device encode runs -f0/-f1/-f2: the -f3 device filter search "
             "is not ported yet")
     dev = resolve(device)
     data = np.ascontiguousarray(np.asarray(data, dtype=np.uint8))
@@ -73,9 +87,16 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     _add(times, "host_crc", t1 - t0)
-    _add(times, "h2d", time.perf_counter() - t1)
+    t2 = time.perf_counter()
+    _add(times, "h2d", t2 - t1)
+    fc = filter_configs(torch.cat([torch.as_tensor(END_TOKEN, device=dev), x]),
+                        opt.filters)
+    if fc is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _add(times, "search", time.perf_counter() - t2)
     bufs, ptrs, oks, freqs, rlens = encode_block_core(
-        x, units=units, chunk=chunk, lanes=lanes,
+        x, fc, units=units, chunk=chunk, lanes=lanes,
         lpx_spans=int(opt.lpx_spans), times=times)
     payload = _fetch_and_splice(bufs, ptrs, oks, freqs, rlens,
                                 stage4_len(n, units), chunk, lanes, times)
@@ -83,8 +104,9 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
 
 
 def stage4_len(n: int, units: int) -> int:
-    """Entropy-stage input length for a block of n raw bytes in the
-    store/filters-off configuration (the same arithmetic as the core)."""
+    """Entropy-stage input length for a block of n raw bytes in the store
+    configuration (the same arithmetic as the core; a filter config does
+    not change lengths)."""
     n1 = n + END_TOKEN.size
     n2 = n1 + 2 * ceil_div(n1, FILTER_BLOCK_SIZE)
     return n2 + END_TOKEN.size + 4 * units

@@ -94,11 +94,11 @@ def test_cli_round_trip_on_cpu(tmp_path):
     src.write_bytes(_corpus(20000, 5).tobytes())
     arc, back = tmp_path / "in.jt3", tmp_path / "back.bin"
     cmd = [sys.executable, "-m", "jampack_tpu_torch.cli"]
-    res = subprocess.run([*cmd, "c", str(src), str(arc), "-c4", "-L4",
-                          "-u24", "-S0"], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
+    # a host encode (the JAX package's CLI, native engine), the port's decode
+    res = subprocess.run([sys.executable, "-m", "jampack_tpu.cli", "c",
+                          str(src), str(arc), "-c4", "-L4", "-u24", "-S0"],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "host encode" in res.stdout
     res = subprocess.run([*cmd, "d", str(arc), str(back), "--device", "cpu"],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr

@@ -246,7 +246,7 @@ def test_archive_round_trip(total):
     assert back.getvalue() == data
 
 
-@pytest.mark.parametrize("kw", [{"filters": 1}, {"lpx_spans": 4},
+@pytest.mark.parametrize("kw", [{"filters": 3}, {"lpx_spans": 4},
                                 {"match_finder": 0}])
 def test_unported_configurations_raise(kw):
     opt = _opt(4, 2048, 24)
@@ -281,28 +281,34 @@ def test_cpu_encode_runs_with_jax_blocked():
     assert res.returncode == 0, res.stderr
 
 
-def _cli(*args):
-    return subprocess.run([sys.executable, "-m", "jampack_tpu_torch.cli",
+def _cli(*args, pkg="jampack_tpu_torch"):
+    return subprocess.run([sys.executable, "-m", f"{pkg}.cli",
                            *map(str, args)], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
 
 
 def test_cli_fused_encode_matches_host(tmp_path):
+    """The port's c (the device encode, --engine fused by default) against
+    the JAX package's c (the native host engine)."""
     src = tmp_path / "in.bin"
     src.write_bytes(_corpus(30000, 13).tobytes())
     flags = ["-m3", "-f0", "-c4", "-L4", "-u24", "-S0"]
-    host, dev = tmp_path / "host.jt3", tmp_path / "dev.jt3"
-    res = _cli("c", src, host, *flags)
+    host, dev, dflt = (tmp_path / f"{k}.jt3" for k in ("host", "dev", "dflt"))
+    res = _cli("c", src, host, *flags, pkg="jampack_tpu")
     assert res.returncode == 0, res.stderr
-    assert "host encode: native" in res.stdout
     res = _cli("c", src, dev, *flags, "--engine", "fused", "--device", "cpu")
     assert res.returncode == 0, res.stderr
     assert "device encode: cpu" in res.stdout
     assert dev.read_bytes() == host.read_bytes()
+    res = _cli("c", src, dflt, *flags, "--device=cpu")
+    assert res.returncode == 0, res.stderr
+    assert dflt.read_bytes() == host.read_bytes()
+    res = _cli("c", src, tmp_path / "x.jt3", *flags, "--engine", "native")
+    assert res.returncode != 0 and "jampack_tpu.cli c" in res.stderr
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["-m0", "-f0", "-S0"], "host-LZ"), (["-m3", "-f1", "-S0"], "filter search"),
+    (["-m0", "-f0", "-S0"], "host-LZ"), (["-m3", "-f3", "-S0"], "filter search"),
     (["-m3", "-f0", "-S4"], "Lpx")])
 def test_cli_fused_refuses_unported(tmp_path, flags, word):
     src = tmp_path / "in.bin"
@@ -310,4 +316,5 @@ def test_cli_fused_refuses_unported(tmp_path, flags, word):
     res = _cli("c", src, tmp_path / "out.jt3", *flags, "--engine=fused",
                "--device", "cpu")
     assert res.returncode != 0 and word in res.stderr
+    assert "python -m jampack_tpu.cli c" in res.stderr
     assert not (tmp_path / "out.jt3").exists()

@@ -27,7 +27,9 @@ from jampack_tpu.stages.rank import rank_encode
 from jampack_tpu_torch.kernels import (
     device_stages,
     encode_stages,
+    hist,
     ibwt,
+    lpc,
     rank,
     rans,
     rans_encode,
@@ -297,3 +299,101 @@ def test_device_encode_then_decode_of_an_8mib_block(cuda):
     got = decode_block_device(payload, crc, opt.blocksize, 960, 4, 0,
                               device=cuda)
     assert np.array_equal(got, data)
+
+
+# ---------------------------------------------------------------------------
+# the filter-search kernels K7 (joint histogram) and K8 (LPC), and the
+# -f1/-f2 block encode
+
+FBS = 1 << 16
+
+
+def _lanes(lens, seed):
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((len(lens), FBS), np.uint8)
+    for b, n in enumerate(lens):
+        rows[b, :n] = (rng.integers(0, 256, n) if b % 2 else
+                       np.repeat(rng.integers(0, 9, n // 7 + 1), 7)[:n])
+    return rows, np.asarray(lens, np.int32)
+
+
+def test_joint_hist_kernel_matches_plain(cuda):
+    rows, lens = _lanes([0, 1, 2, 517, FBS, 40001, FBS, 16], 1)
+    rows[6] = 0  # one pair 65,536 times: the largest cell
+    args = [torch.from_numpy(a).to(cuda) for a in (rows, lens)]
+    before = hist.KERNEL.launches
+    got = hist.joint_hist(*args)
+    assert hist.KERNEL.launches == before + 1
+    assert torch.equal(got, hist.joint_hist_plain(*args))
+    assert int(got[6, 0, 0]) == FBS
+
+
+@pytest.mark.parametrize("decode", [False, True])
+def test_lpc_kernel_matches_plain(cuda, decode):
+    rows, lens = _lanes([0, 1, 17, 3000, FBS, 40001, 5], 2)
+    args = [torch.from_numpy(a).to(cuda) for a in (rows, lens)]
+    before = lpc.KERNEL.launches
+    got = lpc.lpc(*args, decode)
+    assert lpc.KERNEL.launches == before + 1
+    assert torch.equal(got, lpc.lpc_plain(*args, decode))
+    back = lpc.lpc(got, args[1], not decode)
+    j = np.arange(FBS)[None, :]
+    assert np.array_equal(back.cpu().numpy(),
+                          np.where(j < lens[:, None], rows, 0))
+
+
+def _structured(seed=3):
+    """LPC, inline-delta, delta and LPC regimes, one 64 KiB chunk each, the
+    last ragged."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(FBS // 4)
+    sines = np.stack([(8000 * np.sin(t / 300.0)).astype(np.int16),
+                      (6000 * np.cos(t / 410.0)).astype(np.int16)], 1)
+    v = np.cumsum(rng.integers(-8, 9, FBS // 3 + 1))
+    walks = np.stack([v * (k + 1) + 40 * k for k in range(3)], 1)
+    i = np.arange(FBS // 4)
+    recs = np.stack([i % 256, (i * 3) % 256, np.full_like(i, 7),
+                     (i // 5) % 256], 1).astype(np.uint8).reshape(-1)
+    audio = (np.sin(np.arange(9000) / 25) * 90 + 128).astype(np.uint8)
+    return np.concatenate([sines.view(np.uint8).reshape(-1),
+                           walks.astype(np.uint8).reshape(-1)[:FBS], recs,
+                           audio])
+
+
+def test_f1_previous_lpc_pick_runs_k8(cuda, monkeypatch):
+    """A chunk whose only candidate is raw, after an LPC pick: the carried
+    pick is scored on bytes that K8 made, not the host's LPC loop."""
+    from jampack_tpu_torch.kernels import filters_search as fs
+    from jampack_tpu_torch.stages import filters as port_spec
+
+    def refuse(*args):
+        raise AssertionError("the host LPC loop ran")
+
+    audio = (np.sin(np.arange(FBS) / 25) * 90 + 128).astype(np.uint8)
+    alpha = np.frombuffer(b" etaoinshrdlucmfwypvbgkqjxz.,\n", np.uint8)
+    text = alpha[np.random.default_rng(5).integers(0, 30, 3000)]
+    data = torch.from_numpy(np.concatenate([audio, text]))
+    want = fs.pick_f1_configs(data)
+    monkeypatch.setattr(port_spec, "lpc_encode", refuse)
+    monkeypatch.setattr(port_spec, "_apply", refuse)
+    before = lpc.KERNEL.launches
+    assert fs.pick_f1_configs(data.to(cuda)) == want == [(1, 1), (1, 1)]
+    assert lpc.KERNEL.launches >= before + 2  # the candidates, then chunk 1
+
+
+@pytest.mark.parametrize("filters", [1, 2])
+def test_filtered_block_encode_on_cuda_matches_cpu(cuda, filters):
+    data = _structured()
+    opt = Options(blocksize=1 << 20, match_finder=3, filters=filters,
+                  anchor_units=960, rans_lanes=4, ans_chunk=4 << 10,
+                  lpx_spans=0)
+    launches = [k.KERNEL.launches for k in (hist, lpc)]
+    got = encode_block_device(data, opt, device=cuda)
+    assert all(k.KERNEL.launches > c for k, c in zip((hist, lpc), launches))
+    assert got == encode_block_device(data, opt, device="cpu")
+    assert got == compress_block_ex(data, opt, NativeEngine())[:2]
+    before = lpc.KERNEL.launches
+    back = decode_block_device(got[1], got[0], opt.blocksize, 960, 4, 0,
+                               device=cuda)
+    assert lpc.KERNEL.launches > before
+    assert np.array_equal(back, data)
