@@ -12,19 +12,23 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
 -S0):
 
   1. facts     nvidia-smi name and power limit; NVIDIA, torch, CUDA versions
-  2. build     nvcc builds the eight kernels from csrc/, one process each
+  2. build     nvcc builds the nine kernels from csrc/, one process each
   3. oracle    host encode of a 32 MiB, four-block textlike archive in the
                production stream; every block must frame lpx_spans = 0 (the
                Lpx gate drops the stage on text)
   4. parity    each decode kernel against its plain PyTorch version, exact,
                on the stage inputs of the archive's first 8 MiB block, with
-               both times from CUDA events after a warm-up
+               both times from CUDA events after a warm-up; K2 also on the
+               worst case of its walk, 513 chunks x 16,384 B of period-256
+               data (every step rank 255; plain timed on 4 chunks), and the
+               path (staged or direct) it takes
   5. decode    the archive through `jampack_tpu_torch.cli d` on cuda, with
                the decode kernels' launch counts zeroed just before: bytes
                and per-block CRCs must match, and every kernel must have
                run; then the per-stage split of one block
   6. parity    each encode kernel against its plain version, exact, on the
-               stage inputs of the first 8 MiB block of the -f0 encode
+               stage inputs of the first 8 MiB block of the -f0 encode; K6
+               also on the period-256 worst case, and its path
   7. fused     the 32 MiB through `cli c -m3 -f0 ...` on cuda, encode
                launch counts zeroed just before: the archive must equal the
                oracle's byte for byte, and every encode kernel must have run
@@ -51,13 +55,19 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
  14. split     the per-stage times of block 0's -f1 (text and structured)
                and -f2 encodes
  15. golden    the golden JT3 fixture decodes to golden_input.bin
+ 16. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
+               of the codec runs it), exact against its plain version at
+               S = 1024, 4096 and 16384 int32 elements a block, 8 Mi in
+               all, timed beside index_copy_
 
 Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
-runs each kernel, and the bound: the largest of the bytes over 3.35 TB/s,
-the integer operations over 67 T/s and the serial-dependency floor, which
-serial_ms gives alone), the nvidia-smi line, and {"ok": true, "device":
-{...}}.  Exits 1 at once when no GPU is present.
+runs each kernel, named by "path", and the bound: the largest of the bytes
+over 3.35 TB/s, the integer operations over 67 T/s and the
+serial-dependency floor, which serial_ms gives alone; the rank walks also
+give cycles_per_step at the boost clock and worst_ms, their period-256
+time), the nvidia-smi line, and {"ok": true, "device": {...}}.  Exits 1
+at once when no GPU is present.
 """
 
 import json
@@ -75,6 +85,8 @@ STREAM = ["-c16", "-L4", "-u960", "-S0"]
 F0_FLAGS = ["-m3", "-f0", *STREAM]
 F1_FLAGS = ["-m3", "-f1", *STREAM]
 F2_FLAGS = ["-m3", "-f2", *STREAM]
+CHUNK = 16 << 10  # the entropy chunk of both streams
+FEW = 4  # chunks on which the worst cases' plain versions are timed
 
 # The card's published peaks (H100 SXM data sheet, at 700 W): HBM bytes/s,
 # and the float32 rate outside the tensor cores, taken as the ceiling of the
@@ -109,6 +121,26 @@ def structured(n: int, seed: int):
     return x.astype(np.int16).view(np.uint8).reshape(-1)[:n]
 
 
+def period256(chunks: int, width: int, seed: int):
+    """The worst case of the rank walks: `chunks` rows of `width` bytes
+    (a multiple of 256), each a seeded permutation P of the 256 byte values
+    repeated.  Step i < 256 has rank i; every later step has rank 255.
+    Returns (rows, ranks, freqs) with the SRC rank rows written from the
+    period alone: every frequency is width / 256, so the buckets follow
+    the byte values, and bucket v holds the rank of v's first step (its
+    place in P) and then 255s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    perms = np.stack([rng.permutation(256) for _ in range(chunks)])
+    per = width // 256
+    rows = np.tile(perms.astype(np.uint8), (1, per))
+    ranks = np.full((chunks, 256, per), 255, np.uint8)
+    ranks[:, :, 0] = np.argsort(perms, axis=1)
+    freqs = np.full((chunks, 256), per, np.int32)
+    return rows, ranks.reshape(chunks, width), freqs
+
+
 def check(cond, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
@@ -136,12 +168,17 @@ def read(path: str) -> bytes:
         return f.read()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps runs, from CUDA events."""
+def cuda_ms(fn, reps: int, busy: bool = False) -> float:
+    """Mean milliseconds of fn() over reps runs, from CUDA events.  busy:
+    the stream first sleeps ~10 ms, so that every launch is queued before
+    the first runs and a kernel shorter than its Python launch is timed
+    back to back."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    if busy:
+        torch.cuda._sleep(int(CLOCK_HZ / 100))
     start.record()
     for _ in range(reps):
         fn()
@@ -168,10 +205,10 @@ def bound(moved: int, ops: int, steps: int, dep: int) -> dict:
             "serial_ms": t_serial}
 
 
-def parity(name, kernel_fn, plain_fn, reps):
+def parity(name, kernel_fn, plain_fn, reps, busy=False):
     """Run both versions (first calls are the warm-up), require exact
-    equality, then time each.  Returns (outputs, row of the kernels JSON
-    without launches and bound)."""
+    equality, then time each (busy: see cuda_ms).  Returns (outputs, row
+    of the kernels JSON without launches and bound)."""
     import torch
 
     got = kernel_fn()
@@ -182,11 +219,41 @@ def parity(name, kernel_fn, plain_fn, reps):
         check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} != {tuple(w.shape)}")
         err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
     check(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
-    ms = cuda_ms(kernel_fn, reps)
-    plain_ms = cuda_ms(plain_fn, 1)
-    print(f"parity {name}: exact; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    ms = cuda_ms(kernel_fn, reps, busy)
+    plain_ms = cuda_ms(plain_fn, 1, busy)
+    print(f"parity {name}: exact; kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
     return got, {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
                  "library_ms": None}
+
+
+def cycles_per_step(ms: float, steps: int) -> float:
+    """A serial walk's time per step in cycles of the boost clock."""
+    return ms * 1e-3 * CLOCK_HZ / steps
+
+
+def worst_case(name, run, plain, want, path):
+    """The period-256 worst case of a rank walk: run(slice) launches the
+    kernel on those chunks, plain(slice) its plain version.  On every chunk
+    the kernel must give `want` (CPU tensors); on the first FEW chunks it
+    must equal the plain version, which is timed there.  Returns the
+    kernel's ms on every chunk."""
+    import torch
+
+    got = run(slice(None))
+    for g, w in zip(got, want):
+        check(torch.equal(g.cpu(), w),
+              f"{name} (period 256) differs from the period's")
+    few = slice(0, FEW)
+    for g, w in zip(run(few), plain(few)):
+        check(torch.equal(g, w),
+              f"{name} (period 256) differs from its plain version")
+    ms = cuda_ms(lambda: run(slice(None)), 5)
+    plain_ms = cuda_ms(lambda: plain(few), 1)
+    print(f"parity {name} (period 256, every step from the 256th rank 255): "
+          f"{got[0].shape[0]} chunks of {CHUNK} B, exact, path {path}; "
+          f"kernel {ms:.3f} ms ({cycles_per_step(ms, CHUNK):.0f} cycles a "
+          f"step), plain {plain_ms:.1f} ms on {FEW} chunks")
+    return ms
 
 
 def zero(kernels) -> None:
@@ -244,6 +311,7 @@ def main() -> int:
     from jampack_tpu_torch import cli
     from jampack_tpu_torch.kernels import (
         _build,
+        block_scatter,
         device_stages,
         encode_stages,
         filters_search,
@@ -263,7 +331,8 @@ def main() -> int:
     dec_kernels = [rans.KERNEL, rank.KERNEL, ibwt.KERNEL]
     enc_kernels = [encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
                    rans_encode.REVERSE_KERNEL]
-    all_kernels = dec_kernels + enc_kernels + [hist.KERNEL, lpc.KERNEL]
+    all_kernels = dec_kernels + enc_kernels + [hist.KERNEL, lpc.KERNEL,
+                                               block_scatter.KERNEL]
     rows = {}
 
     # ---- 1. facts
@@ -341,7 +410,25 @@ def main() -> int:
             lambda: rank.rank_decode_plain(ranks, freqs, olens, ocap), 5)
         total = int(meta["chunk_olens"].sum())
         rows["rank_decode"] = {**row, **bound(
-            nbytes(ranks, freqs, olens, chunk_bytes, rok), 8 * total, ocap, 6)}
+            nbytes(ranks, freqs, olens, chunk_bytes, rok), 8 * total, ocap, 6),
+            "cycles_per_step": cycles_per_step(row["ms"], ocap),
+            "walk_path": rank.rank_decode_path(ranks.shape[1])}
+        print(f"rank_decode: {rows['rank_decode']['cycles_per_step']:.0f} "
+              f"cycles a step over {ocap} steps; path "
+              f"{rows['rank_decode']['walk_path']} (rows of "
+              f"{ranks.shape[1]} B)")
+        wrows, wranks, wfreqs = period256(C, CHUNK, 1)
+        w_rows, w_ranks, w_freqs = (torch.from_numpy(a).to(dev)
+                                    for a in (wrows, wranks, wfreqs))
+        w_olens = torch.full((C,), CHUNK, dtype=torch.int32, device=dev)
+        rows["rank_decode"]["worst_ms"] = worst_case(
+            "rank_decode",
+            lambda sl: rank.rank_decode(w_ranks[sl], w_freqs[sl],
+                                        w_olens[sl], CHUNK),
+            lambda sl: rank.rank_decode_plain(w_ranks[sl], w_freqs[sl],
+                                              w_olens[sl], CHUNK),
+            (torch.from_numpy(wrows), torch.ones(C, dtype=torch.bool)),
+            rank.rank_decode_path(CHUNK))
         stage = chunk_bytes.reshape(-1)[:total]
         n = total - 4 * header.units
         nlen = n - n % header.units
@@ -361,6 +448,9 @@ def main() -> int:
         dec_s, dec_launches = decode_cli(cli, dec_kernels, arc, back)
         got = read(back)
         check(got == want, "decoded archive differs from the input")
+        check(NBLOCKS <= dec_launches[1] <= len(blocks),
+              f"rank_decode launched {dec_launches[1]} times for "
+              f"{len(blocks)} blocks")
         for i, (h, _) in enumerate(blocks[:NBLOCKS]):
             part = np.frombuffer(got[i * BLOCK:(i + 1) * BLOCK], np.uint8)
             check(dd.integrity_check(part) == h.crc, f"block {i} CRC")
@@ -396,7 +486,20 @@ def main() -> int:
             lambda: encode_stages.rank_encode_plain(rows_in, olens_e), 5)
         rows["rank_encode"] = {**row, **bound(
             nbytes(rows_in, olens_e, ranks_e, freqs_e), 10 * s4.numel(),
-            rows_in.shape[1], 8)}
+            rows_in.shape[1], 8),
+            "cycles_per_step": cycles_per_step(row["ms"], rows_in.shape[1]),
+            "walk_path": encode_stages.rank_encode_path(rows_in.shape[1])}
+        print(f"rank_encode: {rows['rank_encode']['cycles_per_step']:.0f} "
+              f"cycles a step over {rows_in.shape[1]} steps; path "
+              f"{rows['rank_encode']['walk_path']}")
+        rows["rank_encode"]["worst_ms"] = worst_case(
+            "rank_encode",
+            lambda sl: encode_stages.rank_encode(w_rows[sl], w_olens[sl]),
+            lambda sl: encode_stages.rank_encode_plain(w_rows[sl],
+                                                       w_olens[sl]),
+            (torch.from_numpy(wranks), torch.from_numpy(wfreqs)),
+            encode_stages.rank_encode_path(CHUNK))
+        del w_rows, w_ranks, w_freqs
         syms_e, rlens_e = encode_stages.rle0_encode(ranks_e, olens_e)
         chains, crlens_e, mr = encode_stages.deal(syms_e, rlens_e,
                                                   opt.rans_lanes)
@@ -444,6 +547,8 @@ def main() -> int:
         # ---- 8. round trip: the fused archive decodes on the card
         rt_s, rt_launches = decode_cli(cli, dec_kernels, dev_arc, back)
         check(read(back) == want, "fused archive did not decode to the input")
+        check(NBLOCKS <= rt_launches[1] <= nblk,
+              f"rank_decode launched {rt_launches[1]} times for {nblk} blocks")
         print(f"round trip: fused archive decoded in {rt_s:.3f} s, exact; "
               "launches " + ", ".join(
                   f"{k.name}={c}" for k, c in zip(dec_kernels, rt_launches)))
@@ -612,15 +717,44 @@ def main() -> int:
     check(out.getvalue() == gold, "golden JT3 fixture decoded wrongly")
     print(f"golden: golden_jt3_prod_u960_L4_c16_Sa.jt3 -> {len(gold)} bytes, exact")
 
+    # ---- 16. K9: the block scatter of the DMA measuring tool
+    rng = np.random.default_rng(0)
+    k9 = {}
+    for S in (1024, 4096, 16384):
+        nb = min((8 << 20) // S, 8192)  # the tool's sizes
+        src_t = torch.arange(nb * S, dtype=torch.int32, device=dev)
+        offs = torch.from_numpy(rng.permutation(nb).astype(np.int32)).to(dev)
+        offs_l = offs.long()
+        (got,), row = parity(
+            f"block_scatter S={S}",
+            lambda: (block_scatter.block_scatter(src_t, offs, S),),
+            lambda: (block_scatter.block_scatter_plain(src_t, offs, S),), 20,
+            busy=True)
+        check(torch.equal(got.view(nb, S)[offs_l], src_t.view(nb, S)),
+              f"block_scatter S={S} misplaced a block")
+        lib_out = torch.empty_like(src_t)
+        lib_ms = cuda_ms(lambda: lib_out.view(nb, S).index_copy_(
+            0, offs_l, src_t.view(nb, S)), 20, busy=True)
+        k9[S] = {**row, "library_ms": lib_ms,
+                 **bound(nbytes(src_t, offs, got), 0, 0, 0)}
+        print(f"block_scatter S={S}: {nb} blocks, {nbytes(src_t) >> 20} MiB; "
+              f"kernel {row['ms']:.4f} ms, index_copy_ {lib_ms:.4f} ms, "
+              f"bound {k9[S]['bound_ms']:.4f} ms (bytes)")
+    rows["block_scatter"] = {**k9[1024], "ms_by_S": {
+        str(S): r["ms"] for S, r in k9.items()}}
+
     # launches: each kernel's count on the path that runs it (decode, the
-    # -f0 encode, the -f1 encode for K7, the -f2 encode for K8)
+    # -f0 encode, the -f1 encode for K7, the -f2 encode for K8); K9 is on
+    # no path
+    paths = ["decode"] * 3 + ["encode -f0"] * 3 + ["encode -f1",
+                                                    "encode -f2", "tool"]
     path_launches = dec_launches + enc_launches + [f1_launches[6],
-                                                   f2_launches[7]]
+                                                   f2_launches[7], 0]
     check("jampack_tpu" not in sys.modules, "the JAX package was imported")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": c, **rows[k.name]}
-        for k, c in zip(all_kernels, path_launches)]}))
+         "replaces": k.replaces, "path": p, "launches": c, **rows[k.name]}
+        for k, p, c in zip(all_kernels, paths, path_launches)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

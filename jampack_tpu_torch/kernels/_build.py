@@ -37,6 +37,9 @@ _SIGNATURES = {
     "jt_rank_encode": [_P, _I64, _P, _I, _P, _P, _P],
     "jt_joint_hist": [_P, _I64, _P, _I, _P, _P],
     "jt_lpc": [_P, _I64, _P, _I, _I, _P, _P],
+    "jt_block_scatter": [_P, _P, _I, _I64, _P, _P],
+    "jt_rank_decode_staged": [_I],
+    "jt_rank_encode_staged": [_I64],
 }
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
 from ..stages.lz77 import write_token
 
-from ._build import Kernel, ptr, stream_of
+from ._build import Kernel, load, ptr, stream_of
 from .lpc import lpc
 from .rans_encode import model_pairs_wide, rans_reverse_encode_wide
 from .sa import forward_bwt
@@ -120,6 +120,13 @@ def rank_encode(chunks: torch.Tensor, olens: torch.Tensor):
     RANK_KERNEL.launch(ptr(chunks), W, ptr(olens), C, ptr(ranks), ptr(freqs),
                        stream_of(chunks))
     return ranks, freqs
+
+
+def rank_encode_path(width: int) -> str:
+    """The path K6 takes for chunk rows of this width: "staged" (the rank
+    row in shared memory) or "direct" (written in place).  Needs the
+    kernels."""
+    return "staged" if load().jt_rank_encode_staged(width) else "direct"
 
 
 def rank_encode_plain(chunks, olens):

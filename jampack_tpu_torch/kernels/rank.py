@@ -6,12 +6,13 @@ kernel).  Each chunk's ranks decode through a serial MTF walk over its
 symbol buckets (rank.cpp:96-151).
 
 rank_decode launches K2 (csrc/rank_decode.cu, setup and walk in one
-launch) for a CUDA tensor and runs rank_decode_plain for a CPU tensor.
+launch, one warp per chunk) for a CUDA tensor and runs rank_decode_plain
+for a CPU tensor.
 """
 
 import torch
 
-from ._build import Kernel, ptr, stream_of
+from ._build import Kernel, load, ptr, stream_of
 
 KERNEL = Kernel("rank_decode", "jt_rank_decode",
                 "jampack_tpu_torch/csrc/rank_decode.cu",
@@ -52,6 +53,12 @@ def rank_decode(ranks: torch.Tensor, freqs: torch.Tensor,
     KERNEL.launch(ptr(ranks), ranks.shape[1], ptr(freqs), ptr(olens), L,
                   out_cap, ptr(out), ptr(ok), stream_of(ranks))
     return out, ok.bool()
+
+
+def rank_decode_path(ranks_w: int) -> str:
+    """The path K2 takes for rank rows of width ranks_w: "staged" (the row
+    in shared memory) or "direct" (read in place).  Needs the kernels."""
+    return "staged" if load().jt_rank_decode_staged(ranks_w) else "direct"
 
 
 def rank_setup(ranks: torch.Tensor, freqs: torch.Tensor):

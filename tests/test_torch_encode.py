@@ -32,6 +32,8 @@ from jampack_tpu_torch.runtime.device_encode import (
     encode_block_device_ex,
 )
 
+from rank_cases import CASES, edge_chunks, rank_rows
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -114,6 +116,20 @@ def test_rank_encode_matches_jax():
     assert np.array_equal(ranks.numpy(), np.asarray(want_r))
     assert np.array_equal(freqs.numpy(), np.asarray(want_f))
     assert not ranks[2].any() and not freqs[4].any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rank_encode_plain_matches_jax_on_lane_layout_edge_cases(case):
+    """Periods that cross the warp kernel's lane boundaries (8 list entries
+    a lane), one-symbol chunks, a ragged width, all 256 symbols tied."""
+    chunks, olens = edge_chunks(case)
+    ranks, freqs = encode_stages.rank_encode_plain(_t(chunks), _t(olens))
+    want_r, want_f = rank_encode_core(jnp.asarray(chunks), jnp.asarray(olens))
+    assert np.array_equal(ranks.numpy(), np.asarray(want_r))
+    assert np.array_equal(freqs.numpy(), np.asarray(want_f))
+    spec_r, spec_f = rank_rows(chunks, olens)
+    assert np.array_equal(ranks.numpy(), spec_r)
+    assert np.array_equal(freqs.numpy(), spec_f)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ from jampack_tpu.stages.ans import (
 from jampack_tpu.stages.rank import rank_decode as spec_rank_decode
 from jampack_tpu.stages.rank import rank_encode
 from jampack_tpu_torch.kernels import (
+    block_scatter,
     device_stages,
     encode_stages,
     hist,
@@ -39,6 +40,7 @@ from jampack_tpu_torch.runtime.device_decode import (
     decompress_stream_device,
 )
 from jampack_tpu_torch.runtime.device_encode import encode_block_device
+from rank_cases import CASES, edge_chunks, periodic, rank_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -132,6 +134,7 @@ def test_rank_kernel_on_a_1mib_chunk(cuda):
     data = np.repeat(rng.integers(0, 40, n // 8), 8).astype(np.uint8)
     r, f = rank_encode(data)
     f = np.asarray(f, np.int32)
+    assert rank.rank_decode_path(n) == "direct"
     got, ok = rank.rank_decode(torch.from_numpy(r[None]).to(cuda),
                                torch.from_numpy(f[None]).to(cuda),
                                torch.tensor([n], dtype=torch.int32, device=cuda), n)
@@ -258,6 +261,7 @@ def test_rank_encode_kernel_on_a_1mib_chunk(cuda):
     n = 1 << 20
     rng = np.random.default_rng(8)
     data = np.repeat(rng.integers(0, 40, n // 8), 8).astype(np.uint8)
+    assert encode_stages.rank_encode_path(n) == "direct"
     ranks, freqs = encode_stages.rank_encode(
         torch.from_numpy(data[None]).to(cuda),
         torch.tensor([n], dtype=torch.int32, device=cuda))
@@ -265,6 +269,60 @@ def test_rank_encode_kernel_on_a_1mib_chunk(cuda):
     assert np.array_equal(ranks[0].cpu().numpy(), r)
     assert np.array_equal(freqs[0].cpu().numpy(), np.asarray(f, np.int32))
     assert np.array_equal(spec_rank_decode(r, f), data)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_rank_kernels_match_plain_on_lane_layout_edge_cases(cuda, case):
+    chunks, olens = edge_chunks(case)
+    ranks, freqs = rank_rows(chunks, olens)
+    W = chunks.shape[1]
+    c, ol, r, f = (torch.from_numpy(a).to(cuda)
+                   for a in (chunks, olens, ranks, freqs))
+    before = (encode_stages.RANK_KERNEL.launches, rank.KERNEL.launches)
+    got_e = encode_stages.rank_encode(c, ol)
+    got_d = rank.rank_decode(r, f, ol, W)
+    assert (encode_stages.RANK_KERNEL.launches,
+            rank.KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    _same(got_e, encode_stages.rank_encode_plain(c, ol))
+    _same(got_d, rank.rank_decode_plain(r, f, ol, W))
+    assert np.array_equal(got_e[0].cpu().numpy(), ranks)
+    j = np.arange(W)[None, :]
+    assert np.array_equal(got_d[0].cpu().numpy(),
+                          np.where(j < olens[:, None], chunks, 0))
+
+
+def test_rank_kernels_at_the_production_width_with_period_256(cuda):
+    """16,384-byte chunks in which every step after the first 256 has rank
+    255: the staged path at its worst case."""
+    W = 16384
+    chunks = periodic(256, 5, W, 12)
+    olens = np.asarray([W, W, 9000, 0, 300], np.int32)
+    c, ol = torch.from_numpy(chunks).to(cuda), torch.from_numpy(olens).to(cuda)
+    assert encode_stages.rank_encode_path(W) == "staged"
+    assert rank.rank_decode_path(W) == "staged"
+    ranks, freqs = encode_stages.rank_encode(c, ol)
+    _same((ranks, freqs), encode_stages.rank_encode_plain(c, ol))
+    got = rank.rank_decode(ranks, freqs, ol, W)
+    _same(got, rank.rank_decode_plain(ranks, freqs, ol, W))
+    j = np.arange(W)[None, :]
+    assert np.array_equal(got[0].cpu().numpy(),
+                          np.where(j < olens[:, None], chunks, 0))
+    assert bool(got[1].all())
+
+
+@pytest.mark.parametrize("S,nb", [(1024, 300), (4096, 70), (16384, 20),
+                                  (3, 50)])
+def test_block_scatter_kernel_matches_plain(cuda, S, nb):
+    rng = np.random.default_rng(S)
+    src = torch.from_numpy(rng.integers(-2**31, 2**31, S * nb,
+                                        dtype=np.int64).astype(np.int32))
+    offs = torch.from_numpy(rng.permutation(nb).astype(np.int32))
+    src, offs = src.to(cuda), offs.to(cuda)
+    before = block_scatter.KERNEL.launches
+    got = block_scatter.block_scatter(src, offs, S)
+    assert block_scatter.KERNEL.launches == before + 1
+    assert torch.equal(got, block_scatter.block_scatter_plain(src, offs, S))
+    assert torch.equal(got.view(nb, S)[offs.long()], src.view(nb, S))
 
 
 @pytest.mark.parametrize("lanes,chunk,units,n", [

@@ -13,7 +13,12 @@ from jampack_tpu.kernels.device_stages import rank_decode_core, rank_setup_core
 from jampack_tpu.kernels.rank_pallas import rank_decode_pallas
 from jampack_tpu.stages.rank import rank_decode as spec_decode
 from jampack_tpu.stages.rank import rank_encode
-from jampack_tpu_torch.kernels.rank import rank_decode, rank_setup
+from jampack_tpu_torch.kernels.rank import (
+    rank_decode,
+    rank_decode_plain,
+    rank_setup,
+)
+from rank_cases import CASES, edge_chunks, rank_rows
 
 
 def _rows(sizes, seed, ocap):
@@ -95,3 +100,32 @@ def test_setup_matches_jax():
     ref = rank_setup_core(jnp.asarray(ranks), jnp.asarray(freqs))
     for m, r in zip(mine, ref):
         assert np.array_equal(m.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_jax_on_lane_layout_edge_cases(case):
+    """Periods that cross the warp kernel's lane boundaries (8 list entries
+    a lane), one-symbol chunks, a ragged width, all 256 symbols tied."""
+    chunks, olens = edge_chunks(case)
+    ranks, freqs = rank_rows(chunks, olens)
+    ocap = chunks.shape[1]
+    out, ok = rank_decode_plain(torch.from_numpy(ranks),
+                                torch.from_numpy(freqs),
+                                torch.from_numpy(olens), ocap)
+    a, aok = rank_decode_core(jnp.asarray(ranks), jnp.asarray(freqs),
+                              jnp.asarray(olens), ocap)
+    assert np.array_equal(out.numpy(), np.asarray(a))
+    assert np.array_equal(ok.numpy(), np.asarray(aok)) and ok.all()
+    j = np.arange(ocap)[None, :]
+    assert np.array_equal(out.numpy(), np.where(j < olens[:, None], chunks, 0))
+
+
+def test_chip_smoke_worst_case_ranks_are_the_spec():
+    """chip_smoke.period256 writes the rank rows of its period-256 chunks
+    from the period alone; they must be the spec's."""
+    import chip_smoke
+
+    rows, ranks, freqs = chip_smoke.period256(3, 1024, 5)
+    want_r, want_f = rank_rows(rows, np.full(3, 1024, np.int32))
+    assert np.array_equal(ranks, want_r) and np.array_equal(freqs, want_f)
+    assert (want_r == 255).sum() == 3 * (1024 - 255)  # steps 255 onwards

@@ -39,7 +39,8 @@ def _modules():
 
 def test_every_module_imports_with_jax_and_jampack_tpu_blocked():
     mods = _modules()
-    assert "jampack_tpu_torch.kernels.filters_search" in mods
+    assert {"jampack_tpu_torch.kernels.filters_search",
+            "jampack_tpu_torch.kernels.block_scatter"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['jampack_tpu'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
