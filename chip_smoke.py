@@ -18,7 +18,11 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                Lpx gate drops the stage on text)
   4. parity    each decode kernel against its plain PyTorch version, exact,
                on the stage inputs of the archive's first 8 MiB block, with
-               both times from CUDA events after a warm-up; K2 also on the
+               both times from CUDA events after a warm-up; K1's cycles a
+               step; K3 also queued behind a busy stream, and at each
+               sub-chain length D of 16-128 (its measuring entry), exact,
+               with the time of its three phases (jump table, anchor walk,
+               sub-chains); K2 also on the
                worst case of its walk, 513 chunks x 16,384 B of period-256
                data (every step rank 255; plain timed on 4 chunks), and the
                path (staged or direct) it takes
@@ -64,10 +68,11 @@ Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
 runs each kernel, named by "path", and the bound: the largest of the bytes
 over 3.35 TB/s, the integer operations over 67 T/s and the
-serial-dependency floor, which serial_ms gives alone; the rank walks also
-give cycles_per_step at the boost clock and worst_ms, their period-256
-time), the nvidia-smi line, and {"ok": true, "device": {...}}.  Exits 1
-at once when no GPU is present.
+serial-dependency floor, which serial_ms gives alone; K1 and the rank
+walks also give cycles_per_step at the boost clock, the rank walks
+worst_ms, their period-256 time, and K3 ms_queued, its D as "jump",
+depth_ms and phase_ms), the nvidia-smi line, and {"ok": true, "device": {...}}.
+Exits 1 at once when no GPU is present.
 """
 
 import json
@@ -256,6 +261,29 @@ def worst_case(name, run, plain, want, path):
     return ms
 
 
+def chase_sweep(ibwt, lf, sbyte, anchors, units, want) -> dict:
+    """K3 at each sub-chain length D of its measuring entry, exact against
+    `want`, and the time of each of its three phases (CUDA events over runs
+    that stop after phase 1, 2 and 3, each queued behind a busy stream).  Returns {"depth_ms": {D: ms},
+    "phase_ms": {D: [jump table, anchor walk, sub-chains]}}."""
+    import torch
+
+    depth_ms, phase_ms = {}, {}
+    for depth in (16, 32, 64, 128):
+        check(torch.equal(ibwt._chase_at(lf, sbyte, anchors, units, depth),
+                          want), f"ibwt_chase at D = {depth} differs")
+        upto = [cuda_ms(lambda: ibwt._chase_at(lf, sbyte, anchors, units,
+                                               depth, k), 5, busy=True)
+                for k in (1, 2, 3)]
+        depth_ms[str(depth)] = upto[2]
+        phase_ms[str(depth)] = [upto[0], upto[1] - upto[0], upto[2] - upto[1]]
+        print(f"ibwt_chase D = {depth}: {upto[2]:.4f} ms; jump table "
+              f"{upto[0]:.4f} ({depth.bit_length() - 1} passes), anchor walk "
+              f"{upto[1] - upto[0]:.4f}, sub-chains {upto[2] - upto[1]:.4f}"
+              + (" (the wrapper's D)" if depth == ibwt.JUMP else ""))
+    return {"depth_ms": depth_ms, "phase_ms": phase_ms}
+
+
 def zero(kernels) -> None:
     import torch
 
@@ -402,7 +430,10 @@ def main() -> int:
         # per symbol: two range searches of the bank, two state updates and
         # renorms, the model update; the chain runs through the state
         rows["rans_decode"] = {**row, **bound(
-            nbytes(pay, starts, rlens, syms, ok), 60 * nsym, rmax, 30)}
+            nbytes(pay, starts, rlens, syms, ok), 60 * nsym, rmax, 30),
+            "cycles_per_step": cycles_per_step(row["ms"], rmax)}
+        print(f"rans_decode: {rows['rans_decode']['cycles_per_step']:.0f} "
+              f"cycles a step over {rmax} steps, one warp a chain")
         ranks, _ = device_stages.rle0_decode(syms, crlens, olens, ocap)
         (chunk_bytes, rok), row = parity(
             "rank_decode",
@@ -440,9 +471,15 @@ def main() -> int:
             "ibwt_chase",
             lambda: (ibwt.chase(lf, sbyte, anchors, header.units),),
             lambda: (ibwt.chase_plain(lf, sbyte, anchors, header.units),), 5)
+        # "ms" is timed as every row is; ms_queued behind a busy stream, as
+        # the sweep's are, so the two methods sit side by side
+        queued = cuda_ms(lambda: ibwt.chase(lf, sbyte, anchors, header.units),
+                         5, busy=True)
+        print(f"ibwt_chase: {row['ms']:.4f} ms; {queued:.4f} ms queued")
         rows["ibwt_chase"] = {**row, **bound(
             nbytes(lf, sbyte, anchors, body), 3 * nlen, nlen // header.units,
-            3)}
+            3), "ms_queued": queued, "jump": ibwt.JUMP,
+            **chase_sweep(ibwt, lf, sbyte, anchors, header.units, body)}
 
         # ---- 5. decode the archive through the CLI, counting launches
         dec_s, dec_launches = decode_cli(cli, dec_kernels, arc, back)

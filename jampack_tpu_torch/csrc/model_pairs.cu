@@ -13,7 +13,7 @@
 // bound; the symbols are read once and the pairs written once.
 //
 // Design: one thread per chain, the model state in dynamic shared memory
-// laid out [entry][thread] with the update code of K1 (rans_model.cuh).
+// laid out [entry][thread] (rans_model.cuh).
 // The symbol is known, so there is no range search: with the model's
 // interior cums cum[0..w-1] in the bank, low = cum[m-1] (0 at m = 0) and
 // freq = cum[m] - low, or 2^16 - low for the model's last symbol m = w.

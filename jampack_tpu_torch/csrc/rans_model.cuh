@@ -1,5 +1,7 @@
-// The adaptive model bank of the wide rANS coder, shared by K1 (decode) and
-// K4 (the encode model pass) so the two cannot drift.
+// The adaptive model bank of the wide rANS coder for K4 (the encode model
+// pass), one thread per chain.  K1 (the decode) keeps the same model in
+// the registers of a warp (rans_warp_model.cuh); the tests hold both
+// kernels to the same plain model update (rans_common.model_update).
 //
 // Semantics: rans_wide.decode_lanes_wide / model_pairs_wide (reference:
 // model.cpp:60-204).  One thread owns one chain.  A chain's state (the

@@ -31,7 +31,10 @@ _SIGNATURES = {
     "jt_rans_decode": [_P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P],
     "jt_rank_decode": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
-    "jt_ibwt_chase": [_P, _P, _P, ctypes.c_int32, _I, ctypes.c_int32, _P, _P],
+    "jt_ibwt_chase": [_P, _P, _P, ctypes.c_int32, _I, ctypes.c_int32, _P, _P,
+                      _P, _P],
+    "jt_ibwt_chase_at": [_P, _P, _P, ctypes.c_int32, _I, ctypes.c_int32, _I,
+                         _P, _P, _P, _I, _P],
     "jt_model_pairs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "jt_rans_encode": [_P, _P, _P, _I, _I, _P, _P, _P],
     "jt_rank_encode": [_P, _I64, _P, _I, _P, _P, _P],

@@ -13,6 +13,8 @@ is bank[BOFF[k]:BOFF[k+1]].  The quasi counts take QOFF[k]:QOFF[k+1] of a
 253-entry count row.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -80,7 +82,14 @@ if BANK_INIT.shape != (256,) or int(QOFF[-1]) != 253:
 
 def to_device(device) -> dict:
     """The tables the model passes read, as int tensors on `device`: the
-    plain versions and the CUDA kernels take the same ones."""
+    plain versions and the CUDA kernels take the same ones.  Made once a
+    device (a launch would otherwise wait on five small copies); callers
+    only read them."""
+    return _tables(str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: str) -> dict:
     dev = torch.device(device)
 
     def t(a, dtype=torch.int32):

@@ -40,7 +40,11 @@ from jampack_tpu_torch.runtime.device_decode import (
     decompress_stream_device,
 )
 from jampack_tpu_torch.runtime.device_encode import encode_block_device
+from ibwt_cases import CASES as CHASE_CASES
+from ibwt_cases import chase_inputs
 from rank_cases import CASES, edge_chunks, periodic, rank_rows
+from rans_cases import CASES as RANS_CASES
+from rans_cases import case as rans_case
 
 pytestmark = pytest.mark.gpu
 
@@ -101,6 +105,31 @@ def test_rans_kernel_flags_corrupt_chain(cuda):
     got = rans.decode_lanes_wide(*args, int(rlens.max()))
     _same(got, rans.decode_lanes_wide_plain(*args, int(rlens.max())))
     assert not bool(got[1].all())
+
+
+@pytest.mark.parametrize("name", RANS_CASES)
+def test_rans_kernel_matches_plain_on_warp_layout_cases(cuda, name):
+    buf, starts, rlens, mr, groups = rans_case(name)
+    args = [torch.from_numpy(a).to(cuda) for a in (buf, starts, rlens)]
+    before = rans.KERNEL.launches
+    got = rans.decode_lanes_wide(*args, mr, groups=groups)
+    assert rans.KERNEL.launches == before + 1
+    _same(got, rans.decode_lanes_wide_plain(*args, mr, groups=groups))
+
+
+@pytest.mark.parametrize("name", CHASE_CASES)
+def test_chase_kernel_matches_plain_on_jump_cases(cuda, name):
+    """K3 at its depth and at every depth chip_smoke.py measures; the
+    past_2_23 case is the production shape, 960 chains x 8,738 steps."""
+    lf, sbyte, anchors, units = (x.to(cuda) if torch.is_tensor(x) else x
+                                 for x in chase_inputs(name))
+    want = ibwt.chase_plain(lf, sbyte, anchors, units)
+    before = ibwt.KERNEL.launches
+    assert torch.equal(ibwt.chase(lf, sbyte, anchors, units), want)
+    assert ibwt.KERNEL.launches == before + 1
+    for depth in (16, 32, 64, 128):
+        assert torch.equal(ibwt._chase_at(lf, sbyte, anchors, units, depth),
+                           want), depth
 
 
 def _rank_rows(sizes, seed, ocap):

@@ -13,7 +13,9 @@ import torch
 
 from jampack_tpu.kernels.device_stages import ibwt_dyn_core
 from jampack_tpu.runtime.engines import NativeEngine
+from jampack_tpu_torch.kernels import ibwt
 from jampack_tpu_torch.kernels.device_stages import ibwt_dyn
+from ibwt_cases import CASES, chase_inputs, source, stage
 
 CAP = 1 << 16
 _JAX = {}
@@ -80,3 +82,26 @@ def test_stage_past_2_23_bytes():
     out, m, ok = _port(buf, 960)
     assert ok and m == n
     assert np.array_equal(out, data)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_jump_decomposition_matches_chase_and_jax(name):
+    """K3's three phases in tensor ops (chase_jump_plain) at every depth
+    chip_smoke.py measures, against the step-by-step chase and, for the
+    stages of a real BWT small enough for its jit, ibwt_dyn_core."""
+    lf, sbyte, anchors, units = chase_inputs(name)
+    want = ibwt.chase_plain(lf, sbyte, anchors, units)
+    for depth in (16, 32, 64, 128):
+        got = ibwt.chase_jump_plain(lf, sbyte, anchors, units, depth)
+        assert torch.equal(got, want), depth
+    st = stage(name)
+    if st is None:
+        return
+    buf, units = st
+    nlen = want.numel()
+    if buf.size <= CAP:
+        out, n, ok = _jax(buf, buf.size, units)
+        assert np.array_equal(want.numpy(), out[:nlen])
+        assert ok == (name != "corrupt_anchors")
+    if name != "corrupt_anchors":
+        assert np.array_equal(want.numpy(), source(name)[0][:nlen])

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from jampack_tpu.kernels.rans_pallas import decode_lanes_wide_pallas
+from jampack_tpu.format.tables import LOG
 from jampack_tpu.kernels.rans_wide import decode_lanes_wide as jax_wide
 from jampack_tpu.stages.ans import (
     ans_encode_chunk,
@@ -17,7 +18,9 @@ from jampack_tpu.stages.ans import (
     read_chunk_header,
     read_lane_table,
 )
+from jampack_tpu_torch.kernels import rans_common
 from jampack_tpu_torch.kernels.rans import decode_lanes_wide
+from rans_cases import CASES, case
 
 
 def _chunk_case(n, lanes, seed, hi=60):
@@ -92,3 +95,34 @@ def test_flipped_payload_byte_gives_equal_ok():
     bad[int(starts[1]) + 40] ^= 0x5A
     _, ok = _all_three(bad, starts, rlens, _mr(rlens))
     assert not ok.all()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_matches_jax_and_pallas_on_warp_layout_cases(name):
+    """The cases K1's one-warp-per-chain layout could get wrong
+    (tests/rans_cases.py): every exponent and mantissa 128 of e = 7, many
+    rescales of every quasi model, the stretched rescale, garbage, padding
+    chains, the buffer's end, lanes = 0 and 16."""
+    buf, starts, rlens, mr, groups = case(name)
+    got, ok = _all_three(buf, starts, rlens, mr, groups=groups)
+    if name == "all_exponents":
+        assert set(LOG[got.reshape(-1)].tolist()) == set(range(8))
+        assert (got == 256).any()
+    assert ok.all() == (name not in ("garbage", "truncated"))
+
+
+def test_warp_layout_rules_hold_on_the_tables():
+    """K1 lays quasi model k's entries and counts out by their index j in
+    the model: slot j // 32 of the model's slot group on lane j % 32, with
+    1, 1, 1, 1, 2 and 4 slots for widths 3, 7, 15, 31, 63 and 128, and the
+    one count with no slot, j = 128 of model 5, in a spare register
+    (csrc/rans_warp_model.cuh q_width / q_slots): the tables must have
+    those widths, and the 253 counts must fit."""
+    boff = [int(b) for b in rans_common.BOFF]
+    widths = [boff[4 + k] - boff[3 + k] for k in range(rans_common.NQ)]
+    assert widths == [3, 7, 15, 31, 63, 128]
+    assert boff[3] == 7 + 2  # the exponent model, then two adaptive entries
+    slots = [1, 1, 1, 1, 2, 4]
+    assert all(w + 1 <= 32 * n for w, n in zip(widths[:5], slots[:5]))
+    assert widths[5] + 1 == 32 * slots[5] + 1  # the spare
+    assert sum(w + 1 for w in widths) == int(rans_common.QOFF[-1]) == 253
