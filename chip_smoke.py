@@ -31,8 +31,10 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                and per-block CRCs must match, and every kernel must have
                run; then the per-stage split of one block
   6. parity    each encode kernel against its plain version, exact, on the
-               stage inputs of the first 8 MiB block of the -f0 encode; K6
-               also on the period-256 worst case, and its path
+               stage inputs of the first 8 MiB block of the -f0 encode; K4's
+               cycles a symbol step and K5's an op of a state, K5 also at
+               8, 16 and 32 lanes a chain (its measuring entry), exact,
+               timed; K6 also on the period-256 worst case, and its path
   7. fused     the 32 MiB through `cli c -m3 -f0 ...` on cuda, encode
                launch counts zeroed just before: the archive must equal the
                oracle's byte for byte, and every encode kernel must have run
@@ -68,10 +70,11 @@ Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
 runs each kernel, named by "path", and the bound: the largest of the bytes
 over 3.35 TB/s, the integer operations over 67 T/s and the
-serial-dependency floor, which serial_ms gives alone; K1 and the rank
-walks also give cycles_per_step at the boost clock, the rank walks
-worst_ms, their period-256 time, and K3 ms_queued, its D as "jump",
-depth_ms and phase_ms), the nvidia-smi line, and {"ok": true, "device": {...}}.
+serial-dependency floor, which serial_ms gives alone; K1, K4, K5 and the
+rank walks also give cycles_per_step at the boost clock, the rank walks
+worst_ms, their period-256 time, K3 ms_queued, its D as "jump",
+depth_ms and phase_ms, and K5 its lanes a chain as "lanes" and lanes_ms),
+the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
 
@@ -548,17 +551,41 @@ def main() -> int:
             lambda: rans_encode.model_pairs_wide(chains, crlens_e, mr),
             lambda: rans_encode.model_pairs_wide_plain(chains, crlens_e, mr), 5)
         rows["model_pairs"] = {**row, **bound(
-            nbytes(chains, crlens_e, lows, fqs, oks), 50 * nsym_e, mr, 20)}
+            nbytes(chains, crlens_e, lows, fqs, oks), 50 * nsym_e, mr, 20),
+            "cycles_per_step": cycles_per_step(row["ms"], mr)}
+        print(f"model_pairs: {rows['model_pairs']['cycles_per_step']:.0f} "
+              f"cycles a symbol step over {mr} steps, one warp a chain")
         check(bool(oks.all()), "model pass flagged a zero-frequency op")
         (bufs, ptrs), row = parity(
             "rans_encode",
             lambda: rans_encode.rans_reverse_encode_wide(lows, fqs, crlens_e, mr),
             lambda: rans_encode.rans_reverse_encode_wide_plain(lows, fqs,
                                                                crlens_e, mr), 5)
-        # two ops per symbol, each a uint32 division and up to two emissions
+        # two ops per symbol, each a uint32 division and up to two emissions;
+        # op i and op i - 4 share a state, so the serial chain is a state's
+        # ceil(2 mr / 4) ops, not the chain's 2 mr
+        per_state = -(-2 * mr // 4)
         rows["rans_encode"] = {**row, **bound(
-            nbytes(lows, fqs, crlens_e, bufs, ptrs), 2 * 12 * nsym_e, 2 * mr,
-            20)}
+            nbytes(lows, fqs, crlens_e, bufs, ptrs), 2 * 12 * nsym_e,
+            per_state, 20),
+            "cycles_per_step": cycles_per_step(row["ms"], per_state)}
+        print(f"rans_encode: {rows['rans_encode']['cycles_per_step']:.0f} "
+              f"cycles an op of a state over {per_state} ops; bound "
+              f"{rows['rans_encode']['bound_ms']:.4f} ms (a floor of all "
+              f"{2 * mr} ops in series would be "
+              f"{bound(0, 0, 2 * mr, 20)['bound_ms']:.4f} ms)")
+        # the packing: 8, 16 or 32 lanes a chain (4, 2 or 1 chains a warp)
+        lanes_ms = {}
+        for lanes in (8, 16, 32):
+            at = rans_encode._encode_at(lows, fqs, crlens_e, mr, lanes)
+            check(all(torch.equal(a, b) for a, b in zip(at, (bufs, ptrs))),
+                  f"rans_encode at {lanes} lanes a chain differs")
+            lanes_ms[str(lanes)] = cuda_ms(lambda: rans_encode._encode_at(
+                lows, fqs, crlens_e, mr, lanes), 5)
+            print(f"rans_encode at {lanes} lanes a chain: exact, "
+                  f"{lanes_ms[str(lanes)]:.4f} ms"
+                  + (" (the wrapper's)" if lanes == rans_encode.LANES else ""))
+        rows["rans_encode"].update(lanes=rans_encode.LANES, lanes_ms=lanes_ms)
 
         # ---- 7. fused -f0 encode through the CLI, counting launches
         host_arc = os.path.join(tmp, "textlike32.f0.host.jt3")

@@ -1,7 +1,8 @@
 // The adaptive model bank of one wide rANS chain spread over the 32 lanes of
-// its warp (K1, the decode).  K4 keeps the one-thread-per-chain layout of
-// rans_model.cuh; the semantics are the same (rans_wide.decode_lanes_wide,
-// reference model.cpp:60-204).
+// its warp: the one device copy of the model update, shared by K1 (the
+// decode, which searches for each symbol) and K4 (the encode model pass,
+// which knows it).  Semantics: rans_wide.decode_lanes_wide and
+// model_pairs_wide (reference model.cpp:60-204).
 //
 // Layout: every model's entries are spread over the lanes by their index
 // within the model, so a search touches only the registers of the model it
@@ -164,6 +165,48 @@ struct WarpModel {
     fq = (n < q_width(K) ? h : uint32_t(kProbScale)) - lo;
   }
 
+  // The encode direction (K4) knows the symbol, so there is no search: the
+  // pair_* lookups give a known symbol's (low, freq), both uint16 (freq mod
+  // 2^16), on every lane, and return false for a zero-frequency op.  The
+  // model's last symbol m = w has freq 2^16 - cum[w - 1].
+
+  // Exponent model, symbol e (0..7): entries e - 1 and e by a shuffle each
+  // (lane 7 holds 2^16).
+  __device__ __forceinline__ bool pair_exp(int e, uint32_t& lo,
+                                           uint32_t& fq) const {
+    const uint32_t l = __shfl_sync(kFull, ex, (e - 1) & 31);
+    const uint32_t h = __shfl_sync(kFull, ex, e);
+    lo = e > 0 ? l : 0u;
+    fq = (h - lo) & 0xFFFFu;
+    return e == kExp || fq != 0;
+  }
+
+  // Adaptive mantissa model 1 + e (e < 2), whose symbols are m = 0, 1.
+  __device__ __forceinline__ bool pair_adaptive(int e, int m, uint32_t& lo,
+                                                uint32_t& fq) const {
+    const uint32_t a = uint32_t(e == 0 ? A0 : A1);
+    lo = m > 0 ? a : 0u;
+    fq = ((m > 0 ? uint32_t(kProbScale) : a) - lo) & 0xFFFFu;
+    return m > 0 || fq != 0;
+  }
+
+  // Quasi model K, mantissa m: entries m - 1 and m.  A mantissa past the
+  // alphabet (m > w, only an invalid symbol of model 5 has one) reads low =
+  // cum[w - 1] and freq 0; the index is clamped first, since entry<K> masks
+  // its index and m >= 129 would wrap onto another lane.
+  template <int K>
+  __device__ __forceinline__ bool pair_quasi(int m, uint32_t& lo,
+                                             uint32_t& fq) const {
+    constexpr int w = q_width(K);
+    const int mm = min(m, w);
+    const uint32_t l = entry<K>((mm - 1) & (32 * q_slots(K) - 1));
+    const uint32_t h = entry<K>(min(m, w - 1));
+    lo = mm > 0 ? l : 0u;
+    fq = (m < w ? h : (m == w ? uint32_t(kProbScale) : lo)) - lo;
+    fq &= 0xFFFFu;
+    return m == w || (m < w && fq != 0);
+  }
+
   // The exponent model's mixing update (int32, arithmetic >> 5): lane j
   // moves entry j towards row e of the targets.
   __device__ __forceinline__ void update_exp(const Tables& tb, int e) {
@@ -180,10 +223,13 @@ struct WarpModel {
   }
 
   // The quasi count of mantissa m and, after period + 1 symbols, the
-  // rescale, which doubles the period up to UPDATE_RATE (model.cpp).
+  // rescale, which doubles the period up to UPDATE_RATE (model.cpp).  A
+  // decoded mantissa is <= the width; an encoded one past the alphabet (m >=
+  // 129 in model 5) matches no count and counts nothing, as model_pairs_wide
+  // and rans_common.model_update do, but still counts towards the period.
   template <int K>
   __device__ __forceinline__ void update_quasi(int m) {
-    // PROB_BITS per symbol (model.cpp); a decoded mantissa is <= the width
+    // PROB_BITS per symbol (model.cpp)
 #pragma unroll
     for (int s = 0; s < q_slots(K); ++s)
       C[q_first(K) + s] += int32_t(m == 32 * s + lane) << 4;

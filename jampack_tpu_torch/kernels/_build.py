@@ -37,6 +37,8 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _P],
     "jt_model_pairs": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "jt_rans_encode": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "jt_rans_encode_at": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "jt_rans_divmod": [_P, _P, _I64, _P, _P, _P],
     "jt_rank_encode": [_P, _I64, _P, _I, _P, _P, _P],
     "jt_joint_hist": [_P, _I64, _P, _I, _P, _P],
     "jt_lpc": [_P, _I64, _P, _I, _I, _P, _P],

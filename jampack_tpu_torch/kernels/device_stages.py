@@ -119,22 +119,36 @@ def _leb_from(win, base: int, q: int, n: int):
     return val, d + 1, bad
 
 
+def _token_window(buf: torch.Tensor, pos: int) -> list:
+    """The 16-byte token window at `pos` as lz_parse_core reads it: byte k
+    is buf[clip(pos + k, 0, N - 1)] where pos + k < N, else 0.  A pos that
+    wrapped negative reads byte 0 for every index below 0."""
+    N = buf.shape[0]
+    if N == 0:
+        return [0] * 16
+    head = min(max(-pos, 0), 16)  # indices below 0, clipped to byte 0
+    end = min(pos + 16, N)
+    w = buf[0:1].tolist() * head
+    if pos + head < end:
+        w += buf[pos + head:end].tolist()
+    return w + [0] * (16 - len(w))
+
+
 def lz_parse(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
     """LZ77 token-stream parse (lz_parse_core semantics), on the host.
 
-    Reads one 16-byte window per token from `buf` (bytes past the buffer
-    read as 0).  Returns numpy int32 arrays (dst, src, lit, off, match) of
+    Reads one 16-byte window per token from `buf` (_token_window: bytes
+    past the buffer read as 0, indices below 0 as byte 0).  Returns numpy
+    int32 arrays (dst, src, lit, off, match) of
     length max_tokens + 1 (unused dst = out_cap + 1), the token count, the
     output length and a bad flag."""
     MT = max_tokens + 1
     d_ = np.full(MT, out_cap + 1, np.int32)
     s_, l_, o_, m_ = (np.zeros(MT, np.int32) for _ in range(4))
-    N = buf.shape[0]
     pos = out_len = t = 0
     done = bad = False
     while not done and not bad and pos < n:
-        w = buf[pos:pos + 16].tolist() if pos < N else []
-        w += [0] * (16 - len(w))
+        w = _token_window(buf, pos)
         token = w[0]
         q = 1
         off, nb, b1 = _leb_from(w, pos, q, n)

@@ -10,7 +10,11 @@ and the ops are then pushed backward through 4 interleaved rANS states.
 
 model_pairs_wide launches K4 (csrc/model_pairs.cu) and
 rans_reverse_encode_wide launches K5 (csrc/rans_encode.cu) for a CUDA
-tensor; each runs its plain version for a CPU tensor.
+tensor; each runs its plain version for a CPU tensor.  K4 walks one chain
+a warp on the model of csrc/rans_warp_model.cuh, the one device copy of
+the model update, which K1 (the decode) shares; K5 walks a chain's four
+interleaved states at once, one lane each, 16 lanes a chain, and places
+the bytes by a prefix scan over the chain's lanes.
 """
 
 import torch
@@ -26,6 +30,22 @@ PAIRS_KERNEL = Kernel("model_pairs", "jt_model_pairs",
 REVERSE_KERNEL = Kernel("rans_encode", "jt_rans_encode",
                         "jampack_tpu_torch/csrc/rans_encode.cu",
                         "jampack_tpu/kernels/rans_encode.py:168")
+
+# K5 with another number of lanes a chain, for chip_smoke.py's measurement
+# of the packing (_encode_at); no path launches it.
+_MEASURE = Kernel("rans_encode_at", "jt_rans_encode_at",
+                  "jampack_tpu_torch/csrc/rans_encode.cu",
+                  "jampack_tpu/kernels/rans_encode.py:168")
+
+# K5's lanes a chain (32 / LANES chains a warp): kLanes in
+# csrc/rans_encode.cu, fixed there (PERF.md has the sweep that chose it).
+LANES = 16
+
+# K5's division alone, for its exhaustive check on the card (_divmod); no
+# path launches it.
+_DIVMOD = Kernel("rans_divmod", "jt_rans_divmod",
+                 "jampack_tpu_torch/csrc/rans_encode.cu",
+                 "jampack_tpu/kernels/rans_encode.py:214")
 
 _M32 = 0xFFFFFFFF
 
@@ -151,6 +171,24 @@ def rans_reverse_encode_wide(lows: torch.Tensor, fqs: torch.Tensor,
     return bufs, ptrs
 
 
+def _encode_at(lows, fqs, rlens, max_rlen: int, lanes: int):
+    """For measurement only: K5 on CUDA tensors with `lanes` (8, 16 or 32)
+    lanes a chain.  Same contract as rans_reverse_encode_wide."""
+    L = _check_pairs(lows, fqs, rlens, max_rlen)
+    if lanes not in (8, 16, 32):
+        raise ValueError("lanes must be 8, 16 or 32")
+    if not lows.is_cuda:
+        raise ValueError("K5 runs on CUDA tensors only")
+    dev = lows.device
+    bufs = torch.empty(L, 4 * max_rlen + 16, dtype=torch.uint8, device=dev)
+    ptrs = torch.empty(L, dtype=torch.int32, device=dev)
+    if L:
+        lows, fqs, rlens = lows.contiguous(), fqs.contiguous(), rlens.contiguous()
+        _MEASURE.launch(ptr(lows), ptr(fqs), ptr(rlens), L, max_rlen, lanes,
+                        ptr(bufs), ptr(ptrs), stream_of(lows))
+    return bufs, ptrs
+
+
 def rans_reverse_encode_wide_plain(lows, fqs, rlens, max_rlen: int):
     """Plain PyTorch version of K5: a Python loop over a common descending
     op index (chains with fewer ops join late), each emission written at
@@ -191,3 +229,22 @@ def rans_reverse_encode_wide_plain(lows, fqs, rlens, max_rlen: int):
         for b in range(3, -1, -1):
             emit(torch.ones(L, dtype=torch.bool, device=dev), R[:, j] >> (8 * b))
     return bufs[:, :size], pos.to(torch.int32)
+
+
+def _divmod(x: torch.Tensor, fq: torch.Tensor):
+    """For the check only: K5's division, q = x // fq and r = x % fq, for
+    int64 tensors of uint32 values x and fq in 1..65535.  Returns (q, r)
+    int64.  On CUDA tensors it launches K5's helper, else plain ops."""
+    if x.dtype != torch.int64 or fq.dtype != torch.int64 or x.shape != fq.shape:
+        raise ValueError("x and fq must be int64 tensors of one shape")
+    if not x.is_cuda:
+        return x // fq, x % fq
+
+    def bits(t):  # the uint32 values as int32 bit patterns
+        t = torch.where(t >= 1 << 31, t - (1 << 32), t)
+        return t.to(torch.int32).contiguous()
+
+    xs, fs = bits(x), bits(fq)
+    q, r = torch.empty_like(xs), torch.empty_like(xs)
+    _DIVMOD.launch(ptr(xs), ptr(fs), xs.numel(), ptr(q), ptr(r), stream_of(xs))
+    return q.long() & _M32, r.long() & _M32

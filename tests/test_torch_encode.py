@@ -33,6 +33,13 @@ from jampack_tpu_torch.runtime.device_encode import (
 )
 
 from rank_cases import CASES, edge_chunks, rank_rows
+from rans_encode_cases import (
+    PAIRS_CASES,
+    REVERSE_CASES,
+    division_edges,
+    pairs_case,
+    reverse_case,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -153,7 +160,7 @@ def _assert_live_pairs(got, want, rlens):
     are zero (the JAX pass leaves step values of padding there)."""
     assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
     for l, rl in enumerate(rlens):
-        k = 2 * int(rl)
+        k = 2 * max(int(rl), 0)
         for g, w in zip(got[:2], want[:2]):
             assert np.array_equal(g[l, :k].int().numpy(),
                                   np.asarray(w)[l, :k].astype(np.int32)), l
@@ -207,6 +214,48 @@ def test_reverse_encode_matches_jax(L, mr, seed):
     for l in range(L):
         assert np.array_equal(bufs[l, int(wp[l]):].numpy(), wb[l, int(wp[l]):]), l
     assert np.array_equal(bufs.numpy(), wb)
+
+
+def _jax_pairs_np(chains, rlens, mr):
+    lows, fqs, _ = jax_pairs(jnp.asarray(chains), jnp.asarray(rlens), mr)
+    return np.asarray(lows), np.asarray(fqs)
+
+
+@pytest.mark.parametrize("name", PAIRS_CASES)
+def test_model_pairs_plain_matches_jax_on_encode_cases(name):
+    """K4's plain version on the encode cases (tests/rans_encode_cases.py):
+    empty and full chains, e < 2 only, every quasi model's rescales up to
+    period 1024, model 5's spare count and invalid mantissas."""
+    chains, rlens, mr, ok = pairs_case(name)
+    got = rans_encode.model_pairs_wide_plain(_t(chains), _t(rlens), mr)
+    want = jax_pairs(jnp.asarray(chains), jnp.asarray(rlens), mr)
+    _assert_live_pairs(got, want, rlens)
+    assert got[2].tolist() == ok
+
+
+@pytest.mark.parametrize("name", REVERSE_CASES)
+def test_reverse_encode_plain_matches_jax_on_encode_cases(name):
+    """K5's plain version on the pairs of the encode cases and on garbage
+    pairs (fq 0, 1 and 65535; lo + fq > 2^16), every byte and ptr."""
+    lows, fqs, rlens, mr = reverse_case(name, _jax_pairs_np)
+    got = rans_encode.rans_reverse_encode_wide_plain(
+        _t(lows.astype(np.int32)).to(torch.uint16),
+        _t(fqs.astype(np.int32)).to(torch.uint16), _t(rlens), mr)
+    wb, wp = jax_reverse(jnp.asarray(lows), jnp.asarray(fqs),
+                         jnp.asarray(rlens), mr)
+    assert np.array_equal(got[1].numpy(), np.asarray(wp))
+    assert np.array_equal(got[0].numpy(), np.asarray(wb))
+
+
+def test_division_plain_at_the_edges():
+    """_divmod's plain path (what the gpu test holds K5's division to) at
+    the x edges of every 64th fq."""
+    fq = np.arange(1, 1 << 16, 64, dtype=np.int64)
+    x, f = division_edges(fq)
+    q, r = rans_encode._divmod(_t(x), _t(f))
+    assert np.array_equal(q.numpy(), x // f) and np.array_equal(r.numpy(), x % f)
+    assert (x >= 0).all() and (x < 1 << 32).all()
+
 
 
 # ---------------------------------------------------------------------------

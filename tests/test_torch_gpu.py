@@ -45,6 +45,13 @@ from ibwt_cases import chase_inputs
 from rank_cases import CASES, edge_chunks, periodic, rank_rows
 from rans_cases import CASES as RANS_CASES
 from rans_cases import case as rans_case
+from rans_encode_cases import (
+    PAIRS_CASES,
+    REVERSE_CASES,
+    division_edges,
+    pairs_case,
+    reverse_case,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -266,6 +273,53 @@ def test_reverse_encode_kernel_matches_plain(cuda, L, mr, seed):
     got = rans_encode.rans_reverse_encode_wide(lows, fqs, rl, mr)
     assert rans_encode.REVERSE_KERNEL.launches == before + 1
     _same(got, rans_encode.rans_reverse_encode_wide_plain(lows, fqs, rl, mr))
+
+
+@pytest.mark.parametrize("name", PAIRS_CASES)
+def test_model_pairs_kernel_matches_plain_on_encode_cases(cuda, name):
+    chains, rlens, mr, ok = pairs_case(name)
+    args = [torch.from_numpy(a).to(cuda) for a in (chains, rlens)]
+    before = rans_encode.PAIRS_KERNEL.launches
+    got = rans_encode.model_pairs_wide(*args, mr)
+    assert rans_encode.PAIRS_KERNEL.launches == before + 1
+    want = rans_encode.model_pairs_wide_plain(*args, mr)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu().int(), w.cpu().int())
+    assert got[2].tolist() == ok
+
+
+@pytest.mark.parametrize("name", REVERSE_CASES)
+def test_reverse_encode_kernel_matches_plain_on_encode_cases(cuda, name):
+    def pairs(chains, rlens, mr):  # K4 on the card
+        lows, fqs, _ = rans_encode.model_pairs_wide(
+            torch.from_numpy(chains).to(cuda), torch.from_numpy(rlens).to(cuda),
+            mr)
+        return lows.cpu().int().numpy(), fqs.cpu().int().numpy()
+
+    lows, fqs, rlens, mr = reverse_case(name, pairs)
+    lo, fq = (torch.from_numpy(a.astype(np.int32)).to(torch.uint16).to(cuda)
+              for a in (lows, fqs))
+    rl = torch.from_numpy(rlens).to(cuda)
+    before = rans_encode.REVERSE_KERNEL.launches
+    got = rans_encode.rans_reverse_encode_wide(lo, fq, rl, mr)
+    assert rans_encode.REVERSE_KERNEL.launches == before + 1
+    _same(got, rans_encode.rans_reverse_encode_wide_plain(lo, fq, rl, mr))
+    for lanes in (8, 16, 32):  # every packing chip_smoke.py measures
+        _same(rans_encode._encode_at(lo, fq, rl, mr, lanes), got)
+
+
+def test_reverse_encode_division_is_exact_for_every_fq(cuda):
+    """K5's division against / and % for every fq in 1..65535 at x = 0,
+    fq - 1, fq, 2^15 fq - 1, 2^31 - 1, 2^31, 2^31 + 1 and 2^32 - 1, and at
+    a million random x."""
+    x, f = division_edges(np.arange(1, 1 << 16))
+    rng = np.random.default_rng(0)
+    x = np.concatenate([x, rng.integers(0, 1 << 32, 1 << 20)])
+    f = np.concatenate([f, rng.integers(1, 1 << 16, 1 << 20)])
+    q, r = rans_encode._divmod(torch.from_numpy(x).to(cuda),
+                               torch.from_numpy(f).to(cuda))
+    assert np.array_equal(q.cpu().numpy(), x // f)
+    assert np.array_equal(r.cpu().numpy(), x % f)
 
 
 def test_rank_encode_kernel_matches_plain(cuda):

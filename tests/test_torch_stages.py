@@ -109,6 +109,38 @@ def test_lz_truncated_stream_is_not_ok():
     assert blen == int(alen)
 
 
+def _wrapped_literal_stream():
+    """Token 0x07 (literal extension follows), offset 1, a 5-byte literal
+    extension making lit = 2^31 - 1, then 64 zero bytes: the next token's
+    position wraps int32 negative."""
+    from jampack_tpu_torch.format.varint import encode_leb128
+
+    ext = encode_leb128(2**31 - 1 - 7)
+    assert len(ext) == 5
+    return np.frombuffer(bytes([0x07, 0x81]) + ext + bytes(64), np.uint8)
+
+
+@pytest.mark.parametrize("case", ["wrapped", "cut", "short_store"])
+def test_lz_parse_matches_jax_on_odd_windows(case):
+    """Token windows that start below 0 (a wrapped literal run) or run past
+    the buffer: every output of the parse equals lz_parse_core's."""
+    if case == "short_store":
+        buf = np.asarray(Engine().lz_encode(np.arange(5, dtype=np.uint8), 3),
+                         np.uint8)
+    else:
+        buf = _wrapped_literal_stream()
+        if case == "cut":
+            buf = buf[:7].copy()
+    args = (buf.size, 8, 1 << 20)
+    want = jds.lz_parse_core(jnp.asarray(buf), *args)
+    got = tds.lz_parse(torch.from_numpy(buf.copy()), *args)
+    names = ("dst", "src", "lit", "off", "match", "t", "out_len", "bad")
+    for name, g, w in zip(names, got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w)), name
+    if case == "wrapped":
+        assert int(got[5]) == 2 and bool(got[7])
+
+
 # ---------------------------------------------------------------------------
 # Filters
 
