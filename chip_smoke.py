@@ -46,7 +46,11 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                structured data (interleaved int16 sines with noise): K8
                both ways on the 4,128 LPC lanes of the -f2 sweep, K7 on
                the sweep's 12,513 lanes and on the -f1 candidates' sorted
-               lanes; the torch.bincount of the same pairs is timed beside
+               lanes; the torch.bincount of the same pairs is timed beside;
+               K8's cycles a step, and its time with every length 0 and on
+               one block of 32 lanes alone; K7's time per launch, with
+               every length 0 and on zero bytes, and that of the f32 scores
+               of the same tables
  11. f1        the 32 MiB through `cli c -m3 -f1 ...` on cuda, every launch
                count zeroed just before: byte-identical to the oracle, K7
                launched for every block
@@ -59,7 +63,9 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                cuda, counts zeroed: K8 (decode direction) must run, so some
                chunk picked LPC, and the input must come back
  14. split     the per-stage times of block 0's -f1 (text and structured)
-               and -f2 encodes
+               and -f2 encodes; then K8 on the rows of the -f2 path itself
+               (the 129 rows the encode applies, the rows its decode
+               inverts), exact against its plain version, with cycles a step
  15. golden    the golden JT3 fixture decodes to golden_input.bin
  16. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
                of the codec runs it), exact against its plain version at
@@ -70,10 +76,14 @@ Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
 runs each kernel, named by "path", and the bound: the largest of the bytes
 over 3.35 TB/s, the integer operations over 67 T/s and the
-serial-dependency floor, which serial_ms gives alone; K1, K4, K5 and the
-rank walks also give cycles_per_step at the boost clock, the rank walks
-worst_ms, their period-256 time, K3 ms_queued, its D as "jump",
-depth_ms and phase_ms, and K5 its lanes a chain as "lanes" and lanes_ms),
+serial-dependency floor, which serial_ms gives alone; K1, K4, K5, K8 and
+the rank walks also give cycles_per_step at the boost clock, the rank
+walks worst_ms, their period-256 time, K3 ms_queued, its D as "jump",
+depth_ms and phase_ms, K5 its lanes a chain as "lanes" and lanes_ms, K8
+its decode time, zero_lens_ms and one_block (the probes above) and
+path_ms, its time on the -f2 path's own rows, and K7 group_ms, its time
+a launch, store_ms and zero_bytes_ms (the probes above), and score_ms,
+that of the f32 scores of the same tables),
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -651,10 +661,40 @@ def main() -> int:
         j = torch.arange(lpc_in.shape[1], device=dev)[None, :]
         check(torch.equal(dec, torch.where(j < lpc_lens[:, None], lpc_in, 0)),
               "lpc decode did not invert the encode")
-        print(f"lpc: decode {row_d['ms']:.3f} ms (plain "
-              f"{row_d['plain_ms']:.1f} ms), inverts the encode")
+        steps = int(lpc_lens.max())
+        # the serial floor is 2 dependent ops a step both ways, the chains
+        # csrc/lpc.cu walks: decode w' = (63 w + e) >> 6, a multiply-add
+        # and a shift; encode, carrying S = w + b, S' = (S + k) - 4 (S >> 8)
+        # with k from input bytes alone, a shift and a multiply-add
         rows["lpc"] = {**row, **bound(nbytes(lpc_in, lpc_lens, res),
-                                      8 * nval, int(lpc_lens.max()), 5)}
+                                      8 * nval, steps, 2),
+                       "cycles_per_step": cycles_per_step(row["ms"], steps),
+                       "decode_ms": row_d["ms"],
+                       "decode_cycles_per_step": cycles_per_step(row_d["ms"],
+                                                                 steps)}
+        print(f"lpc: {lpc_in.shape[0]} lanes of <= {steps} steps; encode "
+              f"{rows['lpc']['cycles_per_step']:.1f} cycles a step, decode "
+              f"{row_d['ms']:.4f} ms ({rows['lpc']['decode_cycles_per_step']:.1f}"
+              f" cycles a step; plain {row_d['plain_ms']:.1f} ms), inverts the "
+              f"encode; bound {rows['lpc']['bound_ms']:.4f} ms (2 dependent "
+              f"ops a step)")
+        # where the walk's time goes: the zero stores alone (every length
+        # 0), and one block of 32 lanes alone on the card (a warp on each
+        # of one SM's four schedulers: no other warp, no shared HBM)
+        zero_ms = cuda_ms(lambda: lpc.lpc(
+            lpc_in, torch.zeros_like(lpc_lens), False), 5)
+        one = {}
+        for d, src_t in ((False, lpc_in), (True, res)):
+            x, ln = src_t[:32], lpc_lens[:32]
+            t = cuda_ms(lambda: lpc.lpc(x, ln, d), 5)
+            one["decode" if d else "encode"] = {
+                "ms": t, "cycles_per_step": cycles_per_step(t, int(ln.max()))}
+        rows["lpc"].update(zero_lens_ms=zero_ms, one_block=one)
+        print(f"lpc probes: every length 0 {zero_ms:.4f} ms; one block of 32 "
+              f"lanes alone: encode {one['encode']['ms']:.4f} ms ("
+              f"{one['encode']['cycles_per_step']:.1f} cycles a step), decode "
+              f"{one['decode']['ms']:.4f} ms "
+              f"({one['decode']['cycles_per_step']:.1f})")
         lanes = torch.cat(bands + [res])
         lane_lens = torch.cat([flens.repeat(1 + 2 * 32), lpc_lens])
         del bands, dec
@@ -666,10 +706,15 @@ def main() -> int:
             G = filters_search._GROUP
             groups = [(ln[g:g + G], ll[g:g + G])
                       for g in range(0, ln.shape[0], G)]
-            err = 0
+            err, group_ms, score_ms = 0, [], []
             for a, b in groups:
-                d = hist.joint_hist(a, b) - hist.joint_hist_plain(a, b)
+                got_t = hist.joint_hist(a, b)
+                d = got_t - hist.joint_hist_plain(a, b)
                 err = max(err, int(d.abs().max()))
+                group_ms.append(cuda_ms(lambda: hist.joint_hist(a, b), 3))
+                score_ms.append(cuda_ms(
+                    lambda: filters_search._scores_from_joint(got_t, b), 3))
+                del got_t, d
             check(err == 0, f"joint_hist ({label}) differs from its plain "
                             f"version (max abs err {err})")
             ms = cuda_ms(lambda: [hist.joint_hist(a, b) for a, b in groups], 3)
@@ -678,14 +723,30 @@ def main() -> int:
             lib_ms = cuda_ms(lambda: [torch.bincount(
                 hist.pair_keys(a, b), minlength=a.shape[0] * 65536 + 1)
                 for a, b in groups], 1)
+            # where the time goes: the same launches with every length 0
+            # (zero and store the tables, count nothing), and on zero bytes
+            # (every load and the walk, but all pairs (0, 0): no atomic)
+            zl = torch.zeros_like(groups[0][0])
+            zeros = [(a, torch.zeros_like(b)) for a, b in groups]
+            store_ms = cuda_ms(lambda: [hist.joint_hist(a, b)
+                                        for a, b in zeros], 3)
+            zero_bytes_ms = cuda_ms(lambda: [hist.joint_hist(
+                zl[:a.shape[0]], b) for a, b in groups], 3)
+            del zl, zeros
             moved = nbytes(ln, ll) + ln.shape[0] * 65536 * 4
             k7[label] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms,
+                         "library_ms": lib_ms, "group_ms": group_ms,
+                         "score_ms": sum(score_ms), "store_ms": store_ms,
+                         "zero_bytes_ms": zero_bytes_ms,
                          **bound(moved, 6 * int(ll.clamp(min=0).sum()), 64, 4)}
             print(f"parity joint_hist ({label}): {ln.shape[0]} lanes in "
-                  f"{len(groups)} launches, exact; kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.1f} ms, torch.bincount {lib_ms:.3f} ms, bound "
-                  f"{k7[label]['bound_ms']:.3f} ms")
+                  f"{len(groups)} launches, exact; kernel {ms:.3f} ms ("
+                  + " / ".join(f"{t:.3f}" for t in group_ms)
+                  + f" a launch), plain {plain_ms:.1f} ms, torch.bincount "
+                  f"{lib_ms:.3f} ms, bound {k7[label]['bound_ms']:.3f} ms; "
+                  f"the f32 scores of the same tables (filters_search."
+                  f"_scores_from_joint) {sum(score_ms):.3f} ms; every length "
+                  f"0 {store_ms:.3f} ms, zero bytes {zero_bytes_ms:.3f} ms")
         rows["joint_hist"] = k7["-f2 sweep"]
         del lanes, lane_lens, res
 
@@ -769,6 +830,41 @@ def main() -> int:
                   "synchronized): "
                   + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
                   + f"; block wall {block_s:.3f} s")
+
+        # K8 at the path's own shapes: the rows the -f2 block encode applies
+        # (encode_stages) and the rows its decode inverts (device_stages),
+        # caught on their way into the wrapper
+        calls = {}
+        for mod in (encode_stages, device_stages):
+            def catch(rows_t, lens_t, decode, _real=mod.lpc, _mod=mod):
+                calls[_mod.__name__] = (rows_t.clone(), lens_t.clone(), decode)
+                return _real(rows_t, lens_t, decode)
+            mod.lpc = catch
+        try:
+            de.encode_block_device(sblock, opt, dev, {})
+            with open(dev_arc, "rb") as f:
+                h, pay2 = dd.framing.read_block(f)
+            dd.decode_block_device(pay2, h.crc, h.blocksize, h.units, h.lanes,
+                                   h.lpx_spans, dev, {})
+        finally:
+            encode_stages.lpc = device_stages.lpc = lpc.lpc
+        check(len(calls) == 2, "the -f2 encode or decode did not run K8")
+        path_ms = {}
+        for rows_t, lens_t, d in calls.values():
+            label = "decode" if d else "apply"
+            (_,), prow = parity(f"lpc ({label}, path rows)",
+                                lambda: (lpc.lpc(rows_t, lens_t, d),),
+                                lambda: (lpc.lpc_plain(rows_t, lens_t, d),), 5)
+            st = int(lens_t.max())
+            path_ms[label] = {"rows": rows_t.shape[0],
+                              "lpc_rows": int((lens_t > 0).sum()),
+                              "ms": prow["ms"], "plain_ms": prow["plain_ms"],
+                              "cycles_per_step": cycles_per_step(prow["ms"],
+                                                                 st)}
+            print(f"lpc ({label}, path rows): {rows_t.shape[0]} rows, "
+                  f"{path_ms[label]['lpc_rows']} of them LPC, <= {st} steps; "
+                  f"{path_ms[label]['cycles_per_step']:.1f} cycles a step")
+        rows["lpc"]["path_ms"] = path_ms
 
     # ---- 15. golden fixture
     import io

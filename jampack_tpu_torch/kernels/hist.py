@@ -36,8 +36,9 @@ def joint_hist(streams: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     if not streams.is_cuda:
         return joint_hist_plain(streams, lens)
     W = streams.shape[1]
-    if W % 16:
-        raise ValueError("the kernel takes lanes of a multiple of 16 bytes")
+    if W % 16 or W > 65536:
+        raise ValueError("the kernel takes lanes of a multiple of 16 bytes, "
+                         "at most 65,536 (its counters hold up to 2^16)")
     out = torch.empty(B, 256, 256, dtype=torch.int32, device=streams.device)
     if B == 0:
         return out

@@ -52,9 +52,20 @@ def lpc(rows: torch.Tensor, lens: torch.Tensor, decode: bool) -> torch.Tensor:
     return out
 
 
+def encode_step(weight: torch.Tensor, b: torch.Tensor):
+    """One encode step in three-op form: b = (2 p1 - p2 - cur) & 0xFF,
+    weight in [0, 255].  Returns (err, next weight); the weight's chain is
+    an add, a shift and a multiply-add (the spec's is five ops:
+    err = (weight + b) & 0xFF, weight += (err - weight) >> 6).  K8 carries
+    S = weight + b instead, two ops a step (csrc/lpc.cu)."""
+    s = weight + b
+    return s & 0xFF, weight + (b >> _WEIGHT_RATE) - 4 * (s >> 8)
+
+
 def lpc_plain(rows: torch.Tensor, lens: torch.Tensor, decode: bool):
     """Plain PyTorch version of K8: every row in lockstep, one Python step
-    per position up to the longest length, int32 state.  A row's state
+    per position up to the longest length, int32 state; the encode's
+    weight step in three-op form (encode_step).  A row's state
     runs on past its length unfrozen: nothing after that position reads
     it, and those outputs are zeroed.  Same contract as lpc."""
     B = _check(rows, lens)
@@ -79,11 +90,9 @@ def lpc_plain(rows: torch.Tensor, lens: torch.Tensor, decode: bool):
         zero = torch.zeros(1, B, dtype=torch.int32, device=dev)
         p1 = torch.cat([zero, x])[:steps]
         p2 = torch.cat([zero, zero, x])[:steps]
-        base = (p1 - p2) + p1 - x
+        base = ((p1 - p2) + p1 - x) & 0xFF
         for i in range(steps):
-            err = (weight + base[i]) & 0xFF
-            out[i] = err
-            weight += (err - weight) >> _WEIGHT_RATE
+            out[i], weight = encode_step(weight, base[i])
     res = torch.zeros(B, W, dtype=torch.uint8, device=dev)
     j = torch.arange(steps, device=dev)[None, :]
     res[:, :steps] = torch.where(j < lens[:, None], out.t(), 0).to(torch.uint8)

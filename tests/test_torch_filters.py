@@ -19,7 +19,7 @@ from jampack_tpu.stages import filters as spec
 from jampack_tpu_torch.kernels import filters_search as fs
 from jampack_tpu_torch.kernels.encode_stages import END_TOKEN
 from jampack_tpu_torch.kernels.hist import joint_hist, joint_hist_plain
-from jampack_tpu_torch.kernels.lpc import lpc
+from jampack_tpu_torch.kernels.lpc import encode_step, lpc
 from jampack_tpu_torch.runtime.device_decode import decode_block_device
 from jampack_tpu_torch.runtime.device_encode import (
     encode_block_device_ex,
@@ -101,6 +101,67 @@ def test_lpc_matches_jax_and_inverts():
     dec = lpc(enc, l, decode=True)
     j = np.arange(FBS)[None, :]
     assert np.array_equal(dec.numpy(), np.where(j < lens[:, None], rows, 0))
+
+
+def test_lpc_three_op_step_matches_spec_step():
+    """K8's encode step (add, shift, multiply-add on the weight's chain)
+    against _lpc_all's five-op step, run in jnp, for every weight in
+    [0, 255] (the weight's range) and every b = (2 p1 - p2 - cur) & 0xFF:
+    here p1 = p2 = b and cur = 0."""
+    w, b = np.divmod(np.arange(1 << 16, dtype=np.int32), 256)
+    jw, jb = jnp.asarray(w), jnp.asarray(b)
+    p1 = p2 = jb
+    cur = jnp.zeros_like(jb)
+    err = (jw + (((p1 - p2) + p1) - cur)) & 0xFF  # filters_search.py:133-134
+    nw = jw + ((err - jw) >> 6)
+    got_err, got_w = encode_step(torch.from_numpy(w), torch.from_numpy(b))
+    assert np.array_equal(got_err.numpy(), np.asarray(err))
+    assert np.array_equal(got_w.numpy(), np.asarray(nw))
+    assert int(got_w.min()) >= 0 and int(got_w.max()) <= 255
+
+
+def test_lpc_two_op_chains_match_spec():
+    """The two-op chains csrc/lpc.cu walks, in NumPy int32, against the
+    spec: decode's w' = (63 w + e) >> 6 for every (w, e) in [0, 255]^2;
+    encode's S' = (S + k) - 4 (S >> 8) (S = w + b, k = b' - b + (b >> 6))
+    against _lpc_all run in jnp, and decode's double prefix sum of w - e
+    giving the bytes back, on wrap-heavy random and smooth rows."""
+    w, e = np.divmod(np.arange(1 << 16, dtype=np.int32), 256)
+    jw = jnp.asarray(w)
+    spec_w = np.asarray(jw + ((jnp.asarray(e) - jw) >> 6))
+    assert np.array_equal((63 * w + e) >> 6, spec_w)
+
+    n = 3000
+    rng = np.random.default_rng(11)
+    rows = np.zeros((3, FBS), np.int32)
+    rows[0, :n] = rng.integers(0, 256, n)
+    rows[1, :n] = (np.sin(np.arange(n) / 9) * 100 + 128).astype(np.int32)
+    rows[2, :n] = rng.integers(0, 2, n) * 255
+    lens = np.full(3, n, np.int32)
+    want = np.asarray(jfs._lpc_all(jnp.asarray(rows), jnp.asarray(lens)))
+    x = rows[:, :n]
+    p1 = np.pad(x, ((0, 0), (1, 0)))[:, :n]
+    p2 = np.pad(x, ((0, 0), (2, 0)))[:, :n]
+    b = (2 * p1 - p2 - x) & 0xFF
+    b_prev = np.pad(b, ((0, 0), (1, 0)))[:, :n]
+    k = b - b_prev + (b_prev >> 6)
+    S = np.zeros(3, np.int32)
+    err = np.zeros_like(x)
+    for i in range(n):
+        S = (S + k[:, i]) - 4 * (S >> 8)
+        err[:, i] = S & 0xFF
+    assert np.array_equal(err, want[:, :n])
+
+    wt = np.zeros(3, np.int32)
+    u1 = np.zeros(3, np.uint32)
+    u2 = np.zeros(3, np.uint32)
+    back = np.zeros_like(x)
+    for i in range(n):
+        u = 2 * u1 + ((wt - err[:, i]).astype(np.uint32) - u2)
+        wt = (63 * wt + err[:, i]) >> 6
+        back[:, i] = u & 0xFF
+        u2, u1 = u1, u
+    assert np.array_equal(back, x)
 
 
 @pytest.mark.parametrize("n", [1, 2, 5000])

@@ -469,9 +469,73 @@ def test_joint_hist_kernel_matches_plain(cuda):
     assert int(got[6, 0, 0]) == FBS
 
 
+def _hist_edge_lanes():
+    """The counter edges of K7 (packed uint16 counters, cell (0, 0) counted
+    apart), pairs in rows >= 128 only, and segment edges (64-byte segments
+    a thread, 16-byte words)."""
+    rng = np.random.default_rng(4)
+    rows, lens = [], []
+
+    def lane(data, n=FBS):
+        row = np.zeros(FBS, np.uint8)
+        row[:len(data)] = data
+        rows.append(row)
+        lens.append(n)
+
+    z = np.zeros(FBS, np.uint8)
+    lane(z)                                  # (0, 0) = 65,536
+    lane(z, FBS - 1)                         # (0, 0) = 65,535
+    lane(np.r_[z[:FBS - 1], 1])              # 65,535 and its neighbour 1
+    lane(np.r_[z[:FBS - 2], 7, 7])           # (0, 0) = 65,534
+    lane(np.tile(np.uint8([200, 0]), FBS // 2))  # two cells of 32,768
+    lane(np.tile(np.uint8([0, 0, 0, 1]), FBS // 4))  # (0, 0) at 32,769
+    # beside (0, 1) at 16,384
+    lane(rng.integers(128, 256, FBS))        # every pair but the first in
+    lane(z)                                  # rows >= 128; 65,536 again
+    lane(np.tile(np.uint8([1, 2, 1, 3]), FBS // 4))  # (1, 2) and (1, 3) at
+    # 16,384 each: the low and high counters of one packed word
+    for n in (1, 15, 17, 127, 128, 129, 511, 513, 4095, 40001, FBS - 1):
+        lane(rng.integers(0, 256, FBS) if n % 2 else
+             np.repeat(rng.integers(0, 5, FBS // 3 + 1), 3)[:FBS], n)
+    return np.stack(rows), np.asarray(lens, np.int32)
+
+
+def test_joint_hist_kernel_edge_cells(cuda):
+    rows, lens = _hist_edge_lanes()
+    args = [torch.from_numpy(a).to(cuda) for a in (rows, lens)]
+    got = hist.joint_hist(*args)
+    assert torch.equal(got, hist.joint_hist_plain(*args))
+    assert [int(got[i, 0, 0]) for i in range(4)] == [FBS, FBS - 1, FBS - 1,
+                                                     FBS - 2]
+    assert int(got[2, 0, 1]) == 1 and int(got[3, 7, 7]) == 1
+    assert int(got[4, 0, 200]) == int(got[4, 200, 0]) == FBS // 2
+    assert int(got[5, 0, 0]) == FBS // 2 + 1 and int(got[5, 0, 1]) == FBS // 4
+    assert int(got[6, 128:].sum()) == FBS - 1
+    assert int(got[8, 1, 2]) == int(got[8, 1, 3]) == FBS // 4
+    assert got.sum((1, 2)).tolist() == lens.tolist()
+
+
+TILE = 256  # kTile of csrc/lpc.cu: the bytes a lane a stage
+
+
+def _lpc_lanes(case):
+    """'edges': lengths at K8's stage and tile edges and random (wrap-heavy)
+    bytes; 'apply': the 129 rows of an -f2 apply or LPC decode, most of
+    length 0 (the chunks that did not pick LPC)."""
+    if case == "edges":
+        return _lanes([0, 1, 17, 3000, FBS, 40001, 5, TILE - 1, TILE,
+                       TILE + 1, 2 * TILE - 1, 3 * TILE + 1, FBS - 1,
+                       FBS - 16, FBS, FBS], 2)
+    lens = np.zeros(129, np.int32)
+    lens[[0, 7, 8, 31, 32, 64, 100, 128]] = [FBS, FBS, 3, FBS - 1, 1000,
+                                             FBS, TILE + 1, 2]
+    return _lanes(lens.tolist(), 5)
+
+
+@pytest.mark.parametrize("case", ["edges", "apply"])
 @pytest.mark.parametrize("decode", [False, True])
-def test_lpc_kernel_matches_plain(cuda, decode):
-    rows, lens = _lanes([0, 1, 17, 3000, FBS, 40001, 5], 2)
+def test_lpc_kernel_matches_plain(cuda, decode, case):
+    rows, lens = _lpc_lanes(case)
     args = [torch.from_numpy(a).to(cuda) for a in (rows, lens)]
     before = lpc.KERNEL.launches
     got = lpc.lpc(*args, decode)
