@@ -7,12 +7,13 @@ Drives jampack_tpu_torch's paths on cuda:0.  The script imports nothing of
 JAX and nothing of jampack_tpu: the oracle archives come from a separate
 process, `python -m jampack_tpu.cli c` with its native host engine.  The
 paths: the fused block decode of the production JT3 stream (-c16 -L4 -u960
--S4096 -Sa, the CLI's -f1) and the fused block encode of the store
+-S4096 -Sa, the CLI's -f1), of JAM archives with the reference's default
+flags (-m0 -f1 -S4) and -m1, and the fused block encode of the store
 configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
--S0):
+-S0) and with the Lpx stage (-S4096 -Sa; -S4, JAM):
 
   1. facts     nvidia-smi name and power limit; NVIDIA, torch, CUDA versions
-  2. build     nvcc builds the nine kernels from csrc/, one process each
+  2. build     nvcc builds the eleven kernels from csrc/, one process each
   3. oracle    host encode of a 32 MiB, four-block textlike archive in the
                production stream; every block must frame lpx_spans = 0 (the
                Lpx gate drops the stage on text)
@@ -29,7 +30,9 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
   5. decode    the archive through `jampack_tpu_torch.cli d` on cuda, with
                the decode kernels' launch counts zeroed just before: bytes
                and per-block CRCs must match, and every kernel must have
-               run; then the per-stage split of one block
+               run (K11, the token parse, twice a block); then the
+               per-stage split of one block, and K11 against its plain
+               version on that block's one-token lz stage, timed
   6. parity    each encode kernel against its plain version, exact, on the
                stage inputs of the first 8 MiB block of the -f0 encode; K4's
                cycles a symbol step and K5's an op of a state, K5 also at
@@ -66,8 +69,25 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                and -f2 encodes; then K8 on the rows of the -f2 path itself
                (the 129 rows the encode applies, the rows its decode
                inverts), exact against its plain version, with cycles a step
- 15. golden    the golden JT3 fixture decodes to golden_input.bin
- 16. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
+ 15. lpx -Sa   8 MiB each of text, log records and 10-byte lines through
+               `cli c -m3 -f1 -c16 -L4 -u960 -S4096 -Sa`, counts zeroed:
+               byte-identical to the oracle, span words [0, 0, 4096, 0]
+               (the gate keeps the stage on the short lines only), K10
+               once a block; its decode on cuda, K10 once; K10 against its
+               plain version, exact, both ways on the short lines' 4,097
+               spans, timed, also with each padding of a span's shared
+               memory (0 and 1 word), and that block's stage split both
+               ways
+ 16. JAM -S4   the log records through `cli c -m3 -f1 -S4` (JAM framing):
+               byte-identical to the oracle and decoded; K10 timed both
+               ways at 4 spans of 2 MiB, held against the oracle
+ 17. defaults  8 MiB of text, its last tenth log records, encoded by the
+               oracle with the reference's default flags (-m0 -f1 -S4,
+               JAM) and with -m1, decoded through `cli d`: exact, K11
+               twice a block and K10 once; K11 against its plain version on
+               each archive's lz stage (one token; many on -m1), timed
+ 18. golden    all eight golden fixtures decode to golden_input.bin
+ 19. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
                of the codec runs it), exact against its plain version at
                S = 1024, 4096 and 16384 int32 elements a block, 8 Mi in
                all, timed beside index_copy_
@@ -76,18 +96,24 @@ Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
 runs each kernel, named by "path", and the bound: the largest of the bytes
 over 3.35 TB/s, the integer operations over 67 T/s and the
-serial-dependency floor, which serial_ms gives alone; K1, K4, K5, K8 and
-the rank walks also give cycles_per_step at the boost clock, the rank
+serial-dependency floor, which serial_ms gives alone; K1, K4, K5, K8,
+K10 and the rank walks also give cycles_per_step at the boost clock, the rank
 walks worst_ms, their period-256 time, K3 ms_queued, its D as "jump",
 depth_ms and phase_ms, K5 its lanes a chain as "lanes" and lanes_ms, K8
 its decode time, zero_lens_ms and one_block (the probes above) and
-path_ms, its time on the -f2 path's own rows, and K7 group_ms, its time
+path_ms, its time on the -f2 path's own rows, K7 group_ms, its time
 a launch, store_ms and zero_bytes_ms (the probes above), and score_ms,
-that of the f32 scores of the same tables),
+that of the f32 scores of the same tables, K10 its decode time, its
+times at the JAM shape, jam_ms, and with each padding of a span's shared
+memory, ms_by_pad, and K11, its headline on the -m1 stage beside the -m1
+decode's launches, its cycles_per_token and its rows on the -m0 stage,
+m0, and on the production stream's one-token stage, one_token, each with
+the path and launches of its own run),
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -103,6 +129,9 @@ STREAM = ["-c16", "-L4", "-u960", "-S0"]
 F0_FLAGS = ["-m3", "-f0", *STREAM]
 F1_FLAGS = ["-m3", "-f1", *STREAM]
 F2_FLAGS = ["-m3", "-f2", *STREAM]
+SA_SPANS = 4096
+SA_FLAGS = ["-m3", "-f1", "-c16", "-L4", "-u960", f"-S{SA_SPANS}", "-Sa"]
+JAM_FLAGS = ["-m3", "-f1", "-S4"]
 CHUNK = 16 << 10  # the entropy chunk of both streams
 FEW = 4  # chunks on which the worst cases' plain versions are timed
 
@@ -137,6 +166,33 @@ def structured(n: int, seed: int):
           6000 * np.cos(t / 410.0)]
     x = np.stack([c + rng.normal(0, 2, t.size) for c in ch], 1)
     return x.astype(np.int16).view(np.uint8).reshape(-1)[:n]
+
+
+def log_records(n: int):
+    """Log-like text records (a copy of tests/test_lpx_skip.py::_records):
+    field names repeat on every 61-byte line, ids vary."""
+    import numpy as np
+
+    out = bytearray()
+    i = 0
+    while len(out) < n:
+        out += b"ts=2026-08-20T09:%02d:%02d level=INFO module=core id=%06d\n" \
+            % (i // 60 % 60, i % 60, i)
+        i += 1
+    return np.frombuffer(bytes(out[:n]), np.uint8)
+
+
+def short_lines(n: int):
+    """10-byte lines ("%05d,1,OK"): the Lpx model fires within the 2 KiB
+    spans of -S4096, where it does not on the 61-byte log records."""
+    import numpy as np
+
+    out = bytearray()
+    i = 0
+    while len(out) < n:
+        out += b"%05d,1,OK\n" % (i % 100000)
+        i += 1
+    return np.frombuffer(bytes(out[:n]), np.uint8)
 
 
 def period256(chunks: int, width: int, seed: int):
@@ -249,6 +305,38 @@ def cycles_per_step(ms: float, steps: int) -> float:
     return ms * 1e-3 * CLOCK_HZ / steps
 
 
+def k11_parity(stages, args, dev) -> dict:
+    """K11 on one lz stage's arguments (buf, n, max_tokens, out_cap),
+    exact against its plain version (every output array and the count,
+    length and bad flag), timed as the stage calls it: one launch and one
+    status fetch.  Returns the kernels JSON row without launches."""
+    import torch
+
+    buf, n, max_tokens, out_cap = args
+
+    def run(parse, wrap):
+        *arrays, tok, olen, bad = parse(buf, n, max_tokens, out_cap)
+        return (*(wrap(a) for a in arrays),
+                torch.tensor([tok, olen, int(bad)], device=dev))
+
+    got, row = parity(f"lz_parse ({n} B)",
+                      lambda: run(stages.lz_parse, lambda a: a),
+                      lambda: run(stages.lz_parse_plain,
+                                  lambda a: torch.from_numpy(a).to(dev)), 5)
+    tok, bad = int(got[5][0]), bool(got[5][2])
+    check(not bad, "the token parse flagged a stream the path decodes")
+    row["ms"] = cuda_ms(lambda: stages.lz_parse(*args), 5)
+    # the chain of a token: the window load (an L1 hit counted as 8 op
+    # latencies, 32 cycles) and the varint arithmetic that finds the next
+    # token's start (6 dependent ops); about 60 integer ops a token.  The
+    # bytes: a 16-byte window a token (the literal runs between are not
+    # read), the five int32 slots of max_tokens + 1, the 3-int status
+    return {**row, "tokens": tok, "stream_bytes": n,
+            "cycles_per_token": cycles_per_step(row["ms"], max(tok, 1)),
+            **bound(16 * tok + 20 * (max_tokens + 1) + 12, 60 * tok, tok,
+                    14)}
+
+
 def worst_case(name, run, plain, want, path):
     """The period-256 worst case of a rank walk: run(slice) launches the
     kernel on those chunks, plain(slice) its plain version.  On every chunk
@@ -330,13 +418,36 @@ def encode_cli(cli, kernels, src, dst, flags):
     return wall, [k.launches for k in kernels], read(dst)
 
 
-def count_blocks(framing, data: bytes) -> int:
+def span_words(framing, data: bytes) -> list:
+    """The Lpx span word of every block of an archive."""
     import io
 
-    f, n = io.BytesIO(data), 0
-    while framing.read_block(f) is not None:
-        n += 1
-    return n
+    f, words = io.BytesIO(data), []
+    while (rec := framing.read_block(f)) is not None:
+        words.append(rec[0].lpx_spans)
+    return words
+
+
+def count_blocks(framing, data: bytes) -> int:
+    return len(span_words(framing, data))
+
+
+@contextlib.contextmanager
+def caught(module, name: str, calls: list):
+    """While active, module.name records the positional arguments of each
+    call in `calls` (tensors cloned) before it runs."""
+    real = getattr(module, name)
+
+    def spy(*args):
+        calls.append(tuple(a.clone() if hasattr(a, "clone") else a
+                           for a in args))
+        return real(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def main() -> int:
@@ -359,6 +470,7 @@ def main() -> int:
         hist,
         ibwt,
         lpc,
+        lpx,
         rank,
         rans,
         rans_encode,
@@ -369,11 +481,13 @@ def main() -> int:
     from jampack_tpu_torch.runtime.options import Options
 
     dev = torch.device("cuda:0")
-    dec_kernels = [rans.KERNEL, rank.KERNEL, ibwt.KERNEL]
+    dec_kernels = [rans.KERNEL, rank.KERNEL, ibwt.KERNEL,
+                   device_stages.LZ_KERNEL]
     enc_kernels = [encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
                    rans_encode.REVERSE_KERNEL]
-    all_kernels = dec_kernels + enc_kernels + [hist.KERNEL, lpc.KERNEL,
-                                               block_scatter.KERNEL]
+    all_kernels = dec_kernels[:3] + enc_kernels + [
+        hist.KERNEL, lpc.KERNEL, lpx.KERNEL, device_stages.LZ_KERNEL,
+        block_scatter.KERNEL]
     rows = {}
 
     # ---- 1. facts
@@ -501,6 +615,9 @@ def main() -> int:
         check(NBLOCKS <= dec_launches[1] <= len(blocks),
               f"rank_decode launched {dec_launches[1]} times for "
               f"{len(blocks)} blocks")
+        check(dec_launches[3] == 2 * len(blocks),
+              f"lz_parse launched {dec_launches[3]} times for "
+              f"{len(blocks)} blocks")
         for i, (h, _) in enumerate(blocks[:NBLOCKS]):
             part = np.frombuffer(got[i * BLOCK:(i + 1) * BLOCK], np.uint8)
             check(dd.integrity_check(part) == h.crc, f"block {i} CRC")
@@ -517,6 +634,16 @@ def main() -> int:
         print("block 0 stages (s, synchronized): "
               + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
               + f"; block wall {block_s:.3f} s incl. host CRC")
+        # K11 on the production stream's lz stage: one token
+        calls = []
+        with caught(device_stages, "lz_parse", calls):
+            dd.decode_block_device(payload, header.crc, header.blocksize,
+                                   header.units, header.lanes,
+                                   header.lpx_spans, dev)
+        k11_one = k11_parity(device_stages, calls[0], dev)
+        check(k11_one["tokens"] == 1, "the store stream holds more tokens")
+        print(f"lz_parse (one token, {k11_one['stream_bytes']} B): "
+              f"{k11_one['ms']:.4f} ms, launch and status fetch")
 
         # ---- 6. encode kernel parity at the slice shapes of block 0
         opt = Options(blocksize=BLOCK, match_finder=3, filters=0,
@@ -866,18 +993,226 @@ def main() -> int:
                   f"{path_ms[label]['cycles_per_step']:.1f} cycles a step")
         rows["lpc"]["path_ms"] = path_ms
 
-    # ---- 15. golden fixture
+        # ---- 15. Lpx with the -Sa gate: text, log records and short
+        # lines, 8 MiB each, through `cli c ... -S4096 -Sa`
+        lsrc = os.path.join(tmp, "lpx24.bin")
+        host_arc = os.path.join(tmp, "lpx24.host.jt3")
+        dev_arc = os.path.join(tmp, "lpx24.dev.jt3")
+        rblock, cblock = log_records(BLOCK), short_lines(BLOCK)
+        lpx_in = textlike(BLOCK, 7).tobytes() + rblock.tobytes() + \
+            cblock.tobytes()
+        with open(lsrc, "wb") as f:
+            f.write(lpx_in)
+        host_s = oracle(lsrc, host_arc, SA_FLAGS)
+        sa_s, sa_launches, dev_bytes = encode_cli(cli, all_kernels, lsrc,
+                                                  dev_arc, SA_FLAGS)
+        check(dev_bytes == read(host_arc),
+              "the -S4096 -Sa archive differs from the oracle's")
+        words = span_words(dd.framing, dev_bytes)
+        check(words == [0, 0, SA_SPANS, 0],
+              f"-Sa span words {words}, not [0, 0, {SA_SPANS}, 0]")
+        k10, k11 = all_kernels.index(lpx.KERNEL), all_kernels.index(
+            device_stages.LZ_KERNEL)
+        check(sa_launches[k10] == len(words),
+              f"lpx_walk launched {sa_launches[k10]} times encoding "
+              f"{len(words)} blocks")
+        print(f"fused -S{SA_SPANS} -Sa encode: {len(lpx_in)} bytes (text, log "
+              f"records, short lines) -> {len(dev_bytes)} in {sa_s:.3f} s; "
+              f"byte-identical to the oracle ({host_s:.1f} s); span words "
+              f"{words}; lpx_walk launched {sa_launches[k10]} times (the "
+              "stage runs before the gate)")
+        sa_dec_s, sa_dec = decode_cli(cli, dec_kernels + [lpx.KERNEL],
+                                      dev_arc, back)
+        check(read(back) == lpx_in, "the -Sa archive did not decode")
+        check(sa_dec[-1] == sum(w > 0 for w in words),
+              f"lpx_walk launched {sa_dec[-1]} times decoding spans {words}")
+        print(f"-Sa decode: {sa_dec_s:.3f} s, exact; lpx_walk launched "
+              f"{sa_dec[-1]} time(s), lz_parse {sa_dec[3]}")
+        # K10 at the -S4096 shape: the short lines' block, both ways
+        opt_sa = Options(blocksize=BLOCK, match_finder=3, filters=1,
+                         rans_lanes=4, ans_chunk=16 << 10, anchor_units=960,
+                         lpx_spans=SA_SPANS, lpx_auto=True)
+        calls = []
+        with caught(lpx, "lpx_walk", calls):
+            crc, pay_c, spans = de.encode_block_device_ex(cblock, opt_sa, dev)
+            dd.decode_block_device(pay_c, crc, BLOCK, 960, 4, spans, dev)
+        check(spans == SA_SPANS and len(calls) == 2,
+              "the short lines' block did not run K10 both ways")
+        (buf_e, st_e, ln_e, _, mx), (buf_d, st_d, ln_d, _, _) = calls
+        (enc,), row = parity(
+            f"lpx_walk (encode, -S{SA_SPANS})",
+            lambda: (lpx.lpx_walk(buf_e, st_e, ln_e, False, mx),),
+            lambda: (lpx.lpx_walk_plain(buf_e, st_e, ln_e, False),), 5)
+        (dec,), row_d = parity(
+            f"lpx_walk (decode, -S{SA_SPANS})",
+            lambda: (lpx.lpx_walk(buf_d, st_d, ln_d, True, mx),),
+            lambda: (lpx.lpx_walk_plain(buf_d, st_d, ln_d, True),), 5)
+        check(torch.equal(enc, buf_d) and torch.equal(dec, buf_e),
+              "the -Sa walks do not invert each other")
+        n2 = buf_e.numel()
+        # the chain of a step: the record load from shared memory (counted
+        # as 8 op latencies, 32 cycles) and three dependent ops (compare,
+        # select, address); about 60 integer ops a byte
+        rows["lpx_walk"] = {
+            **row, **bound(nbytes(buf_e, st_e, ln_e, enc), 60 * n2, mx, 11),
+            "spans": st_e.numel(), "steps": mx,
+            "cycles_per_step": cycles_per_step(row["ms"], mx),
+            "decode_ms": row_d["ms"], "decode_plain_ms": row_d["plain_ms"],
+            "decode_cycles_per_step": cycles_per_step(row_d["ms"], mx)}
+        # the two layouts of a span's shared memory side by side
+        # (csrc/lpx_walk.cu, Banks): a multiple of 32 words, and one word
+        # more; the headline rows use lpx.BANK_PAD
+        by_pad = {}
+        for pad in (0, 1):
+            by_pad[str(pad)] = {}
+            for label, b_, s_, l_, d_, want_p in (
+                    ("encode", buf_e, st_e, ln_e, False, enc),
+                    ("decode", buf_d, st_d, ln_d, True, dec)):
+                check(torch.equal(lpx.lpx_walk(b_, s_, l_, d_, mx, pad),
+                                  want_p),
+                      f"lpx_walk {label} with pad {pad} differs")
+                by_pad[str(pad)][label] = cuda_ms(
+                    lambda: lpx.lpx_walk(b_, s_, l_, d_, mx, pad), 5)
+        rows["lpx_walk"]["ms_by_pad"] = by_pad
+        print(f"lpx_walk -S{SA_SPANS} by pad: " + "; ".join(
+            f"pad {p}: encode {v['encode']:.4f} ms "
+            f"({cycles_per_step(v['encode'], mx):.0f} cycles a step), decode "
+            f"{v['decode']:.4f} ({cycles_per_step(v['decode'], mx):.0f})"
+            for p, v in by_pad.items()) + f" (BANK_PAD {lpx.BANK_PAD})")
+        print(f"lpx_walk -S{SA_SPANS}: {st_e.numel()} spans of <= {mx} B over "
+              f"{n2} B; encode {row['ms']:.4f} ms "
+              f"({rows['lpx_walk']['cycles_per_step']:.0f} cycles a step), "
+              f"decode {row_d['ms']:.4f} ms "
+              f"({rows['lpx_walk']['decode_cycles_per_step']:.0f}); bound "
+              f"{rows['lpx_walk']['bound_ms']:.4f} ms")
+        times = {}
+        t0 = time.perf_counter()
+        de.encode_block_device_ex(cblock, opt_sa, dev, times)
+        enc_wall = time.perf_counter() - t0
+        dtimes = {}
+        t0 = time.perf_counter()
+        dd.decode_block_device(pay_c, crc, BLOCK, 960, 4, spans, dev, dtimes)
+        dec_wall = time.perf_counter() - t0
+        print(f"encode -S{SA_SPANS} -Sa block (short lines) stages (s): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
+              + f"; block wall {enc_wall:.3f} s; decode stages (s): "
+              + ", ".join(f"{k}={v:.4f}" for k, v in dtimes.items())
+              + f"; block wall {dec_wall:.3f} s")
+
+        # ---- 16. JAM framing, -S4: the log records through `cli c -m3
+        # -f1 -S4`, 4 spans of 2 MiB (wide records, a 64 KiB ring)
+        rsrc = os.path.join(tmp, "records8.bin")
+        host_arc = os.path.join(tmp, "records8.host.jam")
+        dev_arc = os.path.join(tmp, "records8.dev.jam")
+        with open(rsrc, "wb") as f:
+            f.write(rblock.tobytes())
+        host_s = oracle(rsrc, host_arc, JAM_FLAGS)
+        jam_s, jam_launches, dev_bytes = encode_cli(cli, all_kernels, rsrc,
+                                                    dev_arc, JAM_FLAGS)
+        check(dev_bytes == read(host_arc),
+              "the -m3 -f1 -S4 archive differs from the oracle's")
+        check(dev_bytes[:3] == b"JAM", "the -S4 archive is not JAM-framed")
+        words = span_words(dd.framing, dev_bytes)
+        check(jam_launches[k10] == len(words),
+              f"lpx_walk launched {jam_launches[k10]} times for "
+              f"{len(words)} blocks")
+        jam_dec_s, jam_dec = decode_cli(cli, dec_kernels + [lpx.KERNEL],
+                                        dev_arc, back)
+        check(read(back) == rblock.tobytes(), "the JAM archive did not decode")
+        check(jam_dec[-1] == len(words), "K10 did not decode every block")
+        print(f"fused -m3 -f1 -S4 (JAM): {BLOCK} bytes of log records -> "
+              f"{len(dev_bytes)} in {jam_s:.3f} s, byte-identical to the "
+              f"oracle ({host_s:.1f} s); decoded in {jam_dec_s:.3f} s, "
+              f"exact; lpx_walk {jam_launches[k10]} + {jam_dec[-1]} launches")
+        opt_jam = Options(blocksize=BLOCK, match_finder=3, filters=1,
+                          lpx_spans=4)
+        calls = []
+        with caught(lpx, "lpx_walk", calls):
+            crc, pay_r, spans = de.encode_block_device_ex(rblock, opt_jam,
+                                                          dev)
+            dd.decode_block_device(pay_r, crc, BLOCK, 120, 0, spans, dev)
+        check(len(calls) == 2, "the JAM block did not run K10 both ways")
+        jam = {}
+        for (b_, s_, l_, d_, m_) in calls:
+            label = "decode" if d_ else "encode"
+            jam[label] = cuda_ms(lambda: lpx.lpx_walk(b_, s_, l_, d_, m_), 2)
+        jmx = calls[0][4]
+        rows["lpx_walk"].update(
+            jam_spans=calls[0][1].numel(), jam_steps=jmx,
+            jam_ms=jam, jam_bound_ms=bound(
+                nbytes(calls[0][0]) * 2, 60 * calls[0][0].numel(), jmx,
+                11)["bound_ms"],
+            jam_cycles_per_step={k: cycles_per_step(v, jmx)
+                                 for k, v in jam.items()})
+        print(f"lpx_walk -S4 (JAM): {calls[0][1].numel()} spans of <= {jmx} "
+              f"B; encode {jam['encode']:.3f} ms, decode {jam['decode']:.3f} "
+              f"ms ({rows['lpx_walk']['jam_cycles_per_step']['encode']:.0f} /"
+              f" {rows['lpx_walk']['jam_cycles_per_step']['decode']:.0f} "
+              f"cycles a step); bound {rows['lpx_walk']['jam_bound_ms']:.3f}"
+              " ms (held against the oracle: the plain walk would take "
+              "minutes)")
+
+        # ---- 17. the reference's default flags (-m0 -f1 -S4, JAM) and -m1
+        # on 8 MiB of text, a tenth of it log records, through `cli d`
+        msrc = os.path.join(tmp, "mixed8.bin")
+        mixed = np.concatenate([textlike(BLOCK - BLOCK // 10, 3),
+                                log_records(BLOCK // 10)])
+        with open(msrc, "wb") as f:
+            f.write(mixed.tobytes())
+        k11, k11_launches = {}, {}
+        for label, flags in (("-m0", []), ("-m1", ["-m1"])):
+            marc = os.path.join(tmp, f"mixed8{label}.jam")
+            host_s = oracle(msrc, marc, flags)
+            nblk = count_blocks(dd.framing, read(marc))
+            m_s, m_launches = decode_cli(cli, dec_kernels + [lpx.KERNEL],
+                                         marc, back)
+            check(read(back) == mixed.tobytes(),
+                  f"the {label} archive did not decode")
+            check(m_launches[3] == 2 * nblk and m_launches[-1] == nblk,
+                  f"{label}: lz_parse {m_launches[3]}, lpx_walk "
+                  f"{m_launches[-1]} launches for {nblk} blocks")
+            with open(marc, "rb") as f:
+                h, pay_m = dd.framing.read_block(f)
+            calls = []
+            with caught(device_stages, "lz_parse", calls):
+                dd.decode_block_device(pay_m, h.crc, h.blocksize, h.units,
+                                       h.lanes, h.lpx_spans, dev)
+            k11[label] = k11_parity(device_stages, calls[0], dev)
+            k11_launches[label] = m_launches[3]
+            print(f"default flags {label}: oracle {host_s:.1f} s; `cli d` "
+                  f"{m_s:.3f} s, exact; lz_parse {m_launches[3]} launches "
+                  f"(2 a block), lpx_walk {m_launches[-1]}; the lz stage: "
+                  f"{k11[label]['tokens']} tokens over "
+                  f"{k11[label]['stream_bytes']} B, K11 "
+                  f"{k11[label]['ms']:.4f} ms "
+                  f"({k11[label]['cycles_per_token']:.0f} cycles a token, "
+                  f"launch and status fetch included), plain "
+                  f"{k11[label]['plain_ms']:.1f} ms")
+        # the headline: the -m1 stage beside the -m1 decode's launches;
+        # each other stage beside the launches of its own path's run
+        rows["lz_parse"] = {
+            **k11["-m1"],
+            "m0": {**k11["-m0"], "path": "decode -m0 -f1 -S4 (JAM)",
+                   "launches": k11_launches["-m0"]},
+            "one_token": {**k11_one, "path": "decode (production JT3)",
+                          "launches": dec_launches[3]}}
+
+    # ---- 18. golden fixtures: all eight archives
     import io
 
     fixtures = os.path.join(HERE, "tests", "fixtures")
-    gold_arc = read(os.path.join(fixtures, "golden_jt3_prod_u960_L4_c16_Sa.jt3"))
     gold = read(os.path.join(fixtures, "golden_input.bin"))
-    out = io.BytesIO()
-    dd.decompress_stream_device(io.BytesIO(gold_arc), out, dev)
-    check(out.getvalue() == gold, "golden JT3 fixture decoded wrongly")
-    print(f"golden: golden_jt3_prod_u960_L4_c16_Sa.jt3 -> {len(gold)} bytes, exact")
+    names = sorted(f for f in os.listdir(fixtures)
+                   if f.startswith("golden_") and not f.endswith(".bin"))
+    check(len(names) == 8, f"{len(names)} golden archives, not 8")
+    for name in names:
+        out = io.BytesIO()
+        dd.decompress_stream_device(io.BytesIO(read(os.path.join(
+            fixtures, name))), out, dev)
+        check(out.getvalue() == gold, f"golden {name} decoded wrongly")
+    print(f"golden: {', '.join(names)} -> {len(gold)} bytes each, exact")
 
-    # ---- 16. K9: the block scatter of the DMA measuring tool
+    # ---- 19. K9: the block scatter of the DMA measuring tool
     rng = np.random.default_rng(0)
     k9 = {}
     for S in (1024, 4096, 16384):
@@ -904,12 +1239,15 @@ def main() -> int:
         str(S): r["ms"] for S, r in k9.items()}}
 
     # launches: each kernel's count on the path that runs it (decode, the
-    # -f0 encode, the -f1 encode for K7, the -f2 encode for K8); K9 is on
-    # no path
-    paths = ["decode"] * 3 + ["encode -f0"] * 3 + ["encode -f1",
-                                                    "encode -f2", "tool"]
-    path_launches = dec_launches + enc_launches + [f1_launches[6],
-                                                   f2_launches[7], 0]
+    # -f0 encode, the -f1 encode for K7, the -f2 encode for K8, the
+    # -S4096 -Sa encode for K10, the -m1 decode for K11, whose other paths
+    # are in its row); K9 is on no path
+    paths = ["decode"] * 3 + ["encode -f0"] * 3 + [
+        "encode -f1", "encode -f2", "encode -S4096 -Sa", "decode -m1 (JAM)",
+        "tool"]
+    path_launches = dec_launches[:3] + enc_launches + [
+        f1_launches[6], f2_launches[7], sa_launches[k10],
+        k11_launches["-m1"], 0]
     check("jampack_tpu" not in sys.modules, "the JAX package was imported")
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -1,7 +1,8 @@
 """jampack_tpu_torch: the PyTorch/CUDA port of the jampack_tpu block codec.
 
-Decodes JT3/JTX block archives and encodes the store configuration (-m3,
--f0/-f1/-f2, Lpx spans 0) on an NVIDIA H100.  The serial loops and the
+Decodes JAM, JTX and JT3 block archives and encodes the store
+configuration (-m3, -f0/-f1/-f2, any Lpx span count, -Sa) on an NVIDIA
+H100.  The serial loops and the
 histogram of the chains are CUDA kernels written by hand for sm_90a
 (csrc/); the rest is plain PyTorch.  The package stands alone: it imports
 torch and numpy, never jax and never jampack_tpu, and keeps its own copies

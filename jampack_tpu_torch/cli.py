@@ -1,17 +1,19 @@
 """Command line of the port.
 
     python -m jampack_tpu_torch.cli d archive output [--device cuda|cpu]
-    python -m jampack_tpu_torch.cli c input archive -m3 -f0|-f1|-f2 -S0 [-b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli c input archive -m3 -f0|-f1|-f2 [-S# -Sa -b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
 
-d decodes on the GPU.  c encodes on the GPU (--engine fused, the only
-engine and the default), every block of any length, in the configurations
-the port has: -m3 (store), -f0/-f1/-f2 (the filter search on the device)
-and Lpx spans 0 (-S0).  It refuses -m0/-m1/-m2 (the host-LZ route), -f3
-and spans other than 0 (the Lpx encode) with a message naming what is not
-ported yet; `python -m jampack_tpu.cli c` encodes those on the host.  The
-device defaults to cuda; there is no fallback to the CPU: --device cpu
-runs the plain PyTorch versions of the kernels and exists for tests.
-Flags and messages are jampack_tpu.cli's (_parse is a copy).
+d decodes on the GPU, every archive the JAX package's engines write.  c
+encodes on the GPU (--engine fused, the only engine and the default),
+every block of any length, in the configurations the port has: -m3
+(store), -f0/-f1/-f2 (the filter search on the device) and any Lpx span
+count -S# (0 skips the stage), with -Sa the per-block gate that frames
+spans 0 where the stage gains too little.  It refuses -m0/-m1/-m2 (the
+host-LZ route) and -f3 with a message naming what is not ported yet;
+`python -m jampack_tpu.cli c` encodes those on the host.  The device
+defaults to cuda; there is no fallback to the CPU: --device cpu runs the
+plain PyTorch versions of the kernels and exists for tests.  Flags and
+messages are jampack_tpu.cli's (_parse is a copy).
 """
 
 import sys
@@ -119,9 +121,6 @@ def _fused_unsupported(opt) -> str:
     if opt.filters not in (0, 1, 2):
         return (f"-f{opt.filters}: the -f3 device filter search is not "
                 f"ported yet (use -f0/-f1/-f2, or {HOST_ENCODE})")
-    if opt.lpx_spans != 0:
-        return (f"Lpx spans {opt.lpx_spans}: the Lpx encode stage is not "
-                f"ported yet (use -S0, or {HOST_ENCODE} for a host encode)")
     return ""
 
 

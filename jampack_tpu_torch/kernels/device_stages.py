@@ -13,10 +13,9 @@ part, with two differences that follow from PyTorch running eagerly:
   block's one final check.
 
 The chain's serial walks are hand-written CUDA kernels (rans.py, rank.py,
-ibwt.py, and lpc.py for the LPC filter recurrence of the chunks that chose
-LPC); the rest is plain PyTorch.  The LZ token parse loops over tokens in
-Python, reading each token's 16-byte window from the buffer; text streams
-carry a single end token.
+ibwt.py, lpc.py for the LPC filter recurrence of the chunks that chose
+LPC, lpx.py for the Lpx span walk, and K11 here for the LZ token parse);
+the rest is plain PyTorch.
 """
 
 import time
@@ -28,10 +27,16 @@ import torch.nn.functional as F
 from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
 from ..format.varint import CONSTANTS as _VARINT_CONSTANTS
 
+from ._build import Kernel, ptr, stream_of
 from .ibwt import chase, combined_map
 from .lpc import lpc
+from .lpx import lpx_dyn
 from .rank import rank_decode
 from .rans import decode_lanes_wide
+
+LZ_KERNEL = Kernel("lz_parse", "jt_lz_parse",
+                   "jampack_tpu_torch/csrc/lz_parse.cu",
+                   "jampack_tpu/kernels/device_stages.py:269")
 
 _FBS = FILTER_BLOCK_SIZE
 _I32_MAX = 2**31 - 1
@@ -119,36 +124,57 @@ def _leb_from(win, base: int, q: int, n: int):
     return val, d + 1, bad
 
 
-def _token_window(buf: torch.Tensor, pos: int) -> list:
+def _token_window(data: bytes, pos: int) -> list:
     """The 16-byte token window at `pos` as lz_parse_core reads it: byte k
-    is buf[clip(pos + k, 0, N - 1)] where pos + k < N, else 0.  A pos that
+    is data[clip(pos + k, 0, N - 1)] where pos + k < N, else 0.  A pos that
     wrapped negative reads byte 0 for every index below 0."""
-    N = buf.shape[0]
+    N = len(data)
     if N == 0:
         return [0] * 16
     head = min(max(-pos, 0), 16)  # indices below 0, clipped to byte 0
     end = min(pos + 16, N)
-    w = buf[0:1].tolist() * head
+    w = [data[0]] * head
     if pos + head < end:
-        w += buf[pos + head:end].tolist()
+        w += data[pos + head:end]
     return w + [0] * (16 - len(w))
 
 
 def lz_parse(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
-    """LZ77 token-stream parse (lz_parse_core semantics), on the host.
+    """LZ77 token-stream parse of the first n bytes of buf (lz_parse_core
+    semantics).  Returns the int32 tensors (dst, src, lit, off, match) of
+    length max_tokens + 1 on buf's device (unused dst = out_cap + 1), then
+    the token count, the output length and a bad flag as host values.
+    Launches K11 (csrc/lz_parse.cu) for a CUDA tensor, one launch and one
+    fetch of its three-int status; runs lz_parse_plain for a CPU tensor."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1:
+        raise ValueError("buf must be a (N,) uint8 tensor")
+    if not buf.is_cuda:
+        *arrays, t, out_len, bad = lz_parse_plain(buf, n, max_tokens, out_cap)
+        return (*(torch.from_numpy(a) for a in arrays), t, out_len, bad)
+    MT = max_tokens + 1
+    buf = buf.contiguous()
+    arrays = torch.empty(5, MT, dtype=torch.int32, device=buf.device)
+    status = torch.empty(3, dtype=torch.int32, device=buf.device)
+    LZ_KERNEL.launch(ptr(buf), buf.numel(), n, MT, out_cap,
+                     *(ptr(a) for a in arrays), ptr(status), stream_of(buf))
+    t, out_len, bad = status.tolist()
+    return (*arrays.unbind(0), t, out_len, bool(bad))
 
-    Reads one 16-byte window per token from `buf` (_token_window: bytes
-    past the buffer read as 0, indices below 0 as byte 0).  Returns numpy
-    int32 arrays (dst, src, lit, off, match) of
-    length max_tokens + 1 (unused dst = out_cap + 1), the token count, the
-    output length and a bad flag."""
+
+def lz_parse_plain(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
+    """Plain version of K11: the token loop in Python over the buffer's
+    bytes, fetched once (_token_window: bytes past the buffer read as 0,
+    indices below 0 as byte 0).  Returns numpy int32 arrays (dst, src,
+    lit, off, match) of length max_tokens + 1 (unused dst = out_cap + 1),
+    the token count, the output length and a bad flag."""
+    data = buf.cpu().numpy().tobytes()
     MT = max_tokens + 1
     d_ = np.full(MT, out_cap + 1, np.int32)
     s_, l_, o_, m_ = (np.zeros(MT, np.int32) for _ in range(4))
     pos = out_len = t = 0
     done = bad = False
     while not done and not bad and pos < n:
-        w = _token_window(buf, pos)
+        w = _token_window(data, pos)
         token = w[0]
         q = 1
         off, nb, b1 = _leb_from(w, pos, q, n)
@@ -230,12 +256,19 @@ def lz_decode_dyn(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
     Returns (out (out_len,) uint8, out_len, ok) with ok a host bool."""
     d_, s_, l_, o_, _, t, out_len, bad = lz_parse(buf, n, max_tokens,
                                                   out_cap)
-    if t == 1:
+    N = buf.shape[0]
+    if t == 1 and out_len > 0 and N > 0:
         # single end-token stream (store mode, or m0 with no >= 256-byte
-        # dupes): the output is one contiguous literal run
-        s0 = min(max(int(s_[0]), 0), 16)
-        out = buf[s0:s0 + out_len]
-        out = F.pad(out, (0, out_len - out.shape[0]))
+        # dupes): the output is one contiguous literal run from s_[0]
+        # (clipped to [0, 16]), zero past the buffer; gathered on the
+        # device, so its start is never fetched
+        at = s_[:1].long().clamp(0, 16) + torch.arange(out_len,
+                                                       device=buf.device)
+        out = torch.where(at < N, buf[at.clamp(max=N - 1)], 0).to(
+            torch.uint8)
+    elif t == 1:
+        out = torch.zeros(max(out_len, 0), dtype=torch.uint8,
+                          device=buf.device)
     else:
         out = lz_expand(buf, d_, s_, l_, o_, out_len)
     return out, out_len, not bad
@@ -360,7 +393,8 @@ def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
     """The whole per-block decode chain on payload's device:
 
         wide-interleaved rANS -> RLE0 -> SRC rank -> chunk concat
-        -> inverse BWT -> LZ77 (configured mode) -> filters -> LZ77 (dedupe)
+        -> inverse BWT -> LZ77 (configured mode) -> Lpx (lpx_spans > 0)
+        -> filters -> LZ77 (dedupe)
 
     payload: (P,) uint8; meta: device_decode.block_meta's dict (chain
     starts/rlens; per-chunk olens/rlens/freqs).  out_cap and max_tokens
@@ -368,8 +402,6 @@ def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
     `times`, each stage is synchronized and its wall seconds recorded.
     Returns (out (n,) uint8, n, ok bool).
     """
-    if lpx_spans > 0:
-        raise NotImplementedError("Lpx decode is not ported yet")
     dev = payload.device
     olens_np = np.asarray(meta["chunk_olens"], np.int64)
     C = olens_np.size
@@ -419,11 +451,15 @@ def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
         keep = torch.arange(ocap, device=dev)[None, :] < olens[:, None]
         stage = chunk_bytes[keep]
     mark("concat")
-    # 6..9. inverse BWT, LZ (mode), filters, LZ (dedupe)
+    # 6..10. inverse BWT, LZ (mode), Lpx, filters, LZ (dedupe)
     stage, n, ib_ok = ibwt_dyn(stage, total, units)
     mark("ibwt")
     stage, n, lz1_ok = lz_decode_dyn(stage, n, max_tokens, out_cap)
     mark("lz")
+    if lpx_spans > 0:
+        # spans 0: the encoder skipped the stage (the JT3 span word)
+        stage = lpx_dyn(stage, n, lpx_spans, decode=True)
+        mark("lpx")
     stage, n, f_ok = filters_decode_dyn(stage, n, out_cap)
     mark("filters")
     out, n, lz0_ok = lz_decode_dyn(stage, n, max_tokens, out_cap)

@@ -1,20 +1,21 @@
 """The per-block encode chain on the device, stage by stage.
 
 Counterpart of jampack_tpu/kernels/encode_stages.py in the store
-configuration (-m3, Lpx skipped):
+configuration (-m3):
 
     LZ store framing -> filters (-f0 headers, or the picked -f1/-f2
-    configs applied per 64 KiB chunk) -> LZ store framing
+    configs applied per 64 KiB chunk) -> Lpx (spans > 0; with lpx_auto
+    kept only when the gate passes) -> LZ store framing
     -> forward BWT + anchors -> per chunk: SRC rank -> RLE0 -> lane deal
     -> per chain: model pass -> reverse interleaved rANS
 
 Every stage length is a function of the block length alone (a filter
-config changes bytes, not lengths).  Tensors are sized by those lengths
-(the JAX chain's pow2 capacities bound its jit variants; PyTorch runs
-eagerly).  The serial walks are hand-written CUDA kernels: the SRC rank
-encode (K6, here), the LPC filter recurrence (K8, lpc.py), the model pass
-(K4) and the reverse rANS (K5) in rans_encode.py; the rest is plain
-PyTorch.
+config or the Lpx stage changes bytes, not lengths).  Tensors are sized by
+those lengths (the JAX chain's pow2 capacities bound its jit variants;
+PyTorch runs eagerly).  The serial walks are hand-written CUDA kernels:
+the SRC rank encode (K6, here), the LPC filter recurrence (K8, lpc.py), the
+Lpx span walk (K10, lpx.py), the model pass (K4) and the reverse rANS (K5)
+in rans_encode.py; the rest is plain PyTorch.
 """
 
 import time
@@ -24,10 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
+from ..stages.lpx import gain_gate
 from ..stages.lz77 import write_token
 
 from ._build import Kernel, load, ptr, stream_of
 from .lpc import lpc
+from .lpx import lpx_dyn
 from .rans_encode import model_pairs_wide, rans_reverse_encode_wide
 from .sa import forward_bwt
 
@@ -283,18 +286,20 @@ def deal(syms: torch.Tensor, rlens: torch.Tensor, lanes: int):
 
 def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
                       chunk: int, lanes: int, lpx_spans: int = 0,
-                      times: dict = None):
+                      lpx_auto: bool = False, times: dict = None):
     """The whole per-block encode chain on data's device, in the store
-    configuration (-m3) with Lpx skipped (spans 0).
+    configuration (-m3).
 
     data: (n,) uint8, any n >= 0.  fconfigs: None for -f0, else the (F, 2)
-    int32 (type, width) picks of the filter search.  Returns (bufs (NL, 4*max_rlen+16)
-    uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C, 256) int32,
-    rlens (C,) int32) for the host splicer: NL = C * max(lanes, 1) chains
-    in chunk-major order, chain payload l = bufs[l, ptrs[l]:].  With a dict
-    `times`, each stage is synchronized and its wall seconds recorded."""
-    if lpx_spans > 0:
-        raise NotImplementedError("the Lpx encode stage is not ported yet")
+    int32 (type, width) picks of the filter search.  lpx_spans > 0 runs the
+    Lpx stage on that many spans; with lpx_auto it is kept only where
+    pipeline._lpx_gain_gate's integer compare passes.  Returns (bufs (NL,
+    4*max_rlen+16) uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C, 256)
+    int32, rlens (C,) int32, lpx_kept bool) for the host splicer: NL = C *
+    max(lanes, 1) chains in chunk-major order, chain payload l = bufs[l,
+    ptrs[l]:]; lpx_kept says whether the block carries the Lpx stage (its
+    span word is lpx_spans, else 0).  With a dict `times`, each stage is
+    synchronized and its wall seconds recorded."""
     dev = data.device
     t0 = time.perf_counter()
 
@@ -307,12 +312,21 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
             times[name] = times.get(name, 0.0) + now - t0
             t0 = now
 
-    # 1. LZ store framing; 2. filters; 3. Lpx skipped (spans 0); 4. the
-    # second LZ store framing; 5. forward BWT: trailing n3 % units bytes
-    # raw, anchors appended
+    # 1. LZ store framing; 2. filters; 3. Lpx; 4. the second LZ store
+    # framing; 5. forward BWT: trailing n3 % units bytes raw, anchors
+    # appended
     tok = torch.as_tensor(END_TOKEN, device=dev)
     s2 = filter_stage(torch.cat([tok, data]), fconfigs)
     mark("filters")
+    kept = lpx_spans > 0
+    if kept:
+        s2l = lpx_dyn(s2, s2.numel(), lpx_spans, decode=False)
+        if lpx_auto:
+            zeros = torch.stack([(s2 == 0).sum(), (s2l == 0).sum()]).tolist()
+            kept = gain_gate(zeros[0], zeros[1], s2.numel())
+        if kept:
+            s2 = s2l
+        mark("lpx")
     s4 = forward_bwt(torch.cat([tok, s2]), units)
     mark("bwt")
     # 6. entropy, every chunk at once: rank -> RLE0 -> lane deal
@@ -328,4 +342,4 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
     mark("model")
     bufs, ptrs = rans_reverse_encode_wide(lows, fqs, crlens, max_rlen)
     mark("rans")
-    return bufs, ptrs, oks, freqs, rlens
+    return bufs, ptrs, oks, freqs, rlens, kept

@@ -29,13 +29,13 @@ PAIRS_KERNEL = Kernel("model_pairs", "jt_model_pairs",
                       "jampack_tpu/kernels/rans_pallas.py:531")
 REVERSE_KERNEL = Kernel("rans_encode", "jt_rans_encode",
                         "jampack_tpu_torch/csrc/rans_encode.cu",
-                        "jampack_tpu/kernels/rans_encode.py:168")
+                        "jampack_tpu/kernels/rans_encode.py:169")
 
 # K5 with another number of lanes a chain, for chip_smoke.py's measurement
 # of the packing (_encode_at); no path launches it.
 _MEASURE = Kernel("rans_encode_at", "jt_rans_encode_at",
                   "jampack_tpu_torch/csrc/rans_encode.cu",
-                  "jampack_tpu/kernels/rans_encode.py:168")
+                  "jampack_tpu/kernels/rans_encode.py:169")
 
 # K5's lanes a chain (32 / LANES chains a warp): kLanes in
 # csrc/rans_encode.cu, fixed there (PERF.md has the sweep that chose it).

@@ -6,9 +6,8 @@ every O(n) stage runs on the device (kernels/device_stages.decode_block_core).
 The CRC is checked on the host after the fetch, as the reference checks
 after its chain (jampack.cpp:56-57).
 
-There is no fallback: a block the port cannot decode on the device (Lpx
-spans > 0) raises NotImplementedError, a corrupt block raises ValueError,
-and asking for CUDA without a card raises RuntimeError.
+There is no fallback: a corrupt block raises ValueError, and asking for
+CUDA without a card raises RuntimeError.
 """
 
 import time
@@ -98,8 +97,6 @@ def decode_block_device(payload: bytes, crc: int, blocksize: int,
     stages synchronized; host_meta, d2h and host_crc around them)."""
     if np.ndim(lpx_spans) != 0:
         raise TypeError("one block takes one lpx_spans value")
-    if int(lpx_spans) > 0:
-        raise NotImplementedError("Lpx decode is not ported yet")
     dev = resolve(device)
     t0 = time.perf_counter()
     meta = block_meta(payload, lanes)

@@ -7,11 +7,12 @@ metadata (chunk headers, lane tables) around the device-made chain
 payloads, which are compacted on the device and fetched once.
 
 Supported configuration: match_finder=3 (store), filters 0, 1 or 2 (the
--f1/-f2 config search runs on the device, kernels/filters_search.py), Lpx
-spans 0, at every block length from 0 up; archives are byte-identical to
-the host engines' at the same Options.  Anything else raises
-NotImplementedError naming the stage that is not ported yet; there is no
-host route, and asking for CUDA without a card raises RuntimeError.
+-f1/-f2 config search runs on the device, kernels/filters_search.py), any
+Lpx span count, with or without the per-block gate (lpx_auto), at every
+block length from 0 up; archives are byte-identical to the host engines'
+at the same Options.  Anything else raises NotImplementedError naming the
+stage that is not ported yet; there is no host route, and asking for CUDA
+without a card raises RuntimeError.
 """
 
 import time
@@ -62,8 +63,10 @@ def encode_block_device(data: np.ndarray, opt: Options, device="cuda",
 def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
                            times: dict = None):
     """(crc, payload bytes, lpx_spans_used): the device mirror of
-    pipeline.compress_block_ex.  With a dict `times`, per-stage wall seconds
-    are added to it: host_crc, h2d, search (the -f1/-f2 config search), the
+    pipeline.compress_block_ex.  lpx_spans_used is opt.lpx_spans, or 0
+    where opt.lpx_auto's gate dropped the Lpx stage; the block's span word
+    must carry it.  With a dict `times`, per-stage wall seconds are added
+    to it: host_crc, h2d, search (the -f1/-f2 config search), the
     synchronized device stages of encode_block_core, then d2h and
     splice."""
     if opt.match_finder != LZ_MODE_STORE:
@@ -95,18 +98,19 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         _add(times, "search", time.perf_counter() - t2)
-    bufs, ptrs, oks, freqs, rlens = encode_block_core(
-        x, fc, units=units, chunk=chunk, lanes=lanes,
-        lpx_spans=int(opt.lpx_spans), times=times)
+    spans = int(opt.lpx_spans)
+    bufs, ptrs, oks, freqs, rlens, kept = encode_block_core(
+        x, fc, units=units, chunk=chunk, lanes=lanes, lpx_spans=spans,
+        lpx_auto=bool(opt.lpx_auto), times=times)
     payload = _fetch_and_splice(bufs, ptrs, oks, freqs, rlens,
                                 stage4_len(n, units), chunk, lanes, times)
-    return crc, payload, 0
+    return crc, payload, spans if kept else 0
 
 
 def stage4_len(n: int, units: int) -> int:
     """Entropy-stage input length for a block of n raw bytes in the store
-    configuration (the same arithmetic as the core; a filter config does
-    not change lengths)."""
+    configuration (the same arithmetic as the core; neither a filter config
+    nor the Lpx stage changes lengths)."""
     n1 = n + END_TOKEN.size
     n2 = n1 + 2 * ceil_div(n1, FILTER_BLOCK_SIZE)
     return n2 + END_TOKEN.size + 4 * units

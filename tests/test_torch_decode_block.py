@@ -74,12 +74,6 @@ def test_golden_jt3_prod_fixture_decodes():
     assert raw == len(out.getvalue())
 
 
-def test_lpx_spans_raise_not_implemented():
-    with pytest.raises(NotImplementedError):
-        decompress_stream_device(io.BytesIO(_read("golden_f1.jam")),
-                                 io.BytesIO(), "cpu")
-
-
 def test_flipped_payload_byte_raises():
     data, opt, crc, payload = _block(1, 4, 24, n=5000, seed=3)
     bad = bytearray(payload)

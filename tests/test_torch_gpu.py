@@ -31,17 +31,24 @@ from jampack_tpu_torch.kernels import (
     hist,
     ibwt,
     lpc,
+    lpx,
     rank,
     rans,
     rans_encode,
 )
+from jampack_tpu_torch.format import framing as framing
 from jampack_tpu_torch.runtime.device_decode import (
     decode_block_device,
     decompress_stream_device,
 )
-from jampack_tpu_torch.runtime.device_encode import encode_block_device
+from jampack_tpu_torch.runtime.device_encode import (
+    encode_block_device,
+    encode_block_device_ex,
+)
+from jampack_tpu_torch.runtime.options import Options as PortOptions
 from ibwt_cases import CASES as CHASE_CASES
 from ibwt_cases import chase_inputs
+from lpx_cases import LZ_CASES, log_records, lz_case, span_bytes
 from rank_cases import CASES, edge_chunks, periodic, rank_rows
 from rans_cases import CASES as RANS_CASES
 from rans_cases import case as rans_case
@@ -217,16 +224,6 @@ def test_block_decode_on_cuda_matches_cpu(cuda, filters, lanes, units):
     assert np.array_equal(got, data)
     assert np.array_equal(got, decode_block_device(
         payload, crc, opt.blocksize, units, lanes, spans, device="cpu"))
-
-
-def test_golden_jt3_prod_fixture_on_cuda(cuda):
-    with open(os.path.join(FIXTURES, "golden_jt3_prod_u960_L4_c16_Sa.jt3"), "rb") as f:
-        arc = f.read()
-    with open(os.path.join(FIXTURES, "golden_input.bin"), "rb") as f:
-        want = f.read()
-    out = io.BytesIO()
-    decompress_stream_device(io.BytesIO(arc), out, cuda)
-    assert out.getvalue() == want
 
 
 # ---------------------------------------------------------------------------
@@ -602,3 +599,133 @@ def test_filtered_block_encode_on_cuda_matches_cpu(cuda, filters):
                                device=cuda)
     assert lpc.KERNEL.launches > before
     assert np.array_equal(back, data)
+
+
+# ---------------------------------------------------------------------------
+# K10, the Lpx span walk, and K11, the LZ token parse
+
+
+def _spans_buffer(lens, kinds, seed):
+    """Contiguous spans of the given lengths, span k filled with bytes of
+    kinds[k % len(kinds)].  Returns (buf, starts, lens) as numpy arrays."""
+    lens = np.asarray(lens, np.int32)
+    starts = (np.cumsum(lens) - lens).astype(np.int32)
+    parts = [span_bytes(kinds[k % len(kinds)], int(n), seed + k)
+             for k, n in enumerate(lens)]
+    return np.concatenate(parts), starts, lens
+
+
+def _walk_both(cuda, buf, starts, lens, plain_on, pad=lpx.BANK_PAD):
+    """K10 against lpx_walk_plain both ways (the plain version on
+    `plain_on`: the CPU steps a few spans faster, the card many), its
+    shared memory padded by `pad` words a span; decode inverts encode."""
+    args = [torch.from_numpy(a.copy()) for a in (buf, starts, lens)]
+    dev_args = [a.to(cuda) for a in args]
+    p_args = [a.to(plain_on) for a in args]
+    enc = lpx.lpx_walk_plain(*p_args, False)
+    dec = lpx.lpx_walk_plain(enc, p_args[1], p_args[2], True)
+    assert torch.equal(dec.cpu(), args[0])
+    before = lpx.KERNEL.launches
+    mx = int(lens.max())
+    got = lpx.lpx_walk(*dev_args, False, mx, pad)
+    assert torch.equal(got.cpu(), enc.cpu())
+    back = lpx.lpx_walk(got, dev_args[1], dev_args[2], True, mx, pad)
+    assert torch.equal(back.cpu(), args[0])
+    assert lpx.KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("pad", [0, 1])
+def test_lpx_kernel_at_the_s4096_shape(cuda, pad):
+    """4,096 spans of 2 KiB (packed records, the whole span in shared
+    memory), zero, random and log-record bytes; a span's shared memory a
+    multiple of 32 words and padded to an odd count."""
+    buf, starts, lens = _spans_buffer([2048] * 4095 + [1000],
+                                      ["zeros", "random", "records"], 0)
+    _walk_both(cuda, buf, starts, lens, cuda, pad)
+
+
+@pytest.mark.parametrize("size", [1 << 16, (1 << 16) + 4096])
+def test_lpx_kernel_on_long_spans(cuda, size):
+    """Spans of 64 KiB (wide records, the span in shared memory) and over
+    64 KiB (wide records, a 64 KiB ring)."""
+    buf, starts, lens = _spans_buffer([size] * 3,
+                                      ["zeros", "random", "records"], 1)
+    _walk_both(cuda, buf, starts, lens, "cpu")
+
+
+def test_lpx_kernel_on_tiny_spans(cuda):
+    rng = np.random.default_rng(2)
+    buf, starts, lens = _spans_buffer(rng.integers(1, 4, 20000),
+                                      ["records", "random"], 2)
+    _walk_both(cuda, buf, starts, lens, cuda)
+
+
+@pytest.mark.parametrize("name", LZ_CASES)
+def test_lz_parse_kernel_matches_plain(cuda, name):
+    buf, n, max_tokens, out_cap = lz_case(name)
+    want = device_stages.lz_parse_plain(torch.from_numpy(buf.copy()), n,
+                                        max_tokens, out_cap)
+    before = device_stages.LZ_KERNEL.launches
+    got = device_stages.lz_parse(torch.from_numpy(buf.copy()).to(cuda), n,
+                                 max_tokens, out_cap)
+    assert device_stages.LZ_KERNEL.launches == before + 1
+    for g, w in zip(got[:5], want[:5]):
+        assert np.array_equal(g.cpu().numpy(), w)
+    assert got[5:] == want[5:]
+    assert want[7] == (name != "many_tokens")
+
+
+@pytest.mark.parametrize("name", [
+    "golden_f0.jam", "golden_f1.jam", "golden_f2.jam", "golden_m1.jam",
+    "golden_m2.jam", "golden_m3.jam", "golden_jtx_u960_L16_c256.jtx",
+    "golden_jt3_prod_u960_L4_c16_Sa.jt3"])
+def test_golden_fixtures_on_cuda(cuda, name):
+    """Every golden archive decodes on the card: K11 twice a block, K10
+    once a block that frames spans > 0."""
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        arc = f.read()
+    with open(os.path.join(FIXTURES, "golden_input.bin"), "rb") as f:
+        want = f.read()
+    blocks = []
+    stream = io.BytesIO(arc)
+    while (rec := framing.read_block(stream)) is not None:
+        blocks.append(rec[0].lpx_spans)
+    before = (device_stages.LZ_KERNEL.launches, lpx.KERNEL.launches)
+    out = io.BytesIO()
+    decompress_stream_device(io.BytesIO(arc), out, cuda)
+    assert out.getvalue() == want
+    assert device_stages.LZ_KERNEL.launches - before[0] == 2 * len(blocks)
+    assert lpx.KERNEL.launches - before[1] == sum(s > 0 for s in blocks)
+
+
+@pytest.mark.parametrize("spans,auto", [(4, False), (4096, False),
+                                        (4096, True), (8, True)])
+def test_lpx_block_encode_on_cuda_matches_cpu(cuda, spans, auto):
+    data = np.concatenate([log_records(60000), span_bytes("random", 3000, 3)])
+    opt = PortOptions(blocksize=1 << 20, match_finder=3, filters=1,
+                      anchor_units=120, rans_lanes=4, ans_chunk=16 << 10,
+                      lpx_spans=spans, lpx_auto=auto)
+    before = lpx.KERNEL.launches
+    got = encode_block_device_ex(data, opt, device=cuda)
+    assert lpx.KERNEL.launches == before + 1
+    assert got == encode_block_device_ex(data, opt, device="cpu")
+    back = decode_block_device(got[1], got[0], opt.blocksize, 120, 4, got[2],
+                               device=cuda)
+    assert np.array_equal(back, data)
+
+
+@pytest.mark.parametrize("spans", [4, 4096])
+def test_lpx_kernel_matches_native_on_8mib_of_log_records(cuda, spans):
+    """K10 against the native engine's Lpx on the -f1 stage of 8 MiB of
+    log records: 4 spans of 2 MiB (wide records, the ring), where the
+    threshold passes 2^31 / (order) and the JAX walk departs (ROADMAP C6),
+    and 4,097 spans of 2 KiB."""
+    eng = NativeEngine()
+    stage = np.asarray(eng.filters_encode(
+        eng.lz_encode(log_records(8 << 20), 3), 1), np.uint8)
+    want = np.asarray(eng.lpx_encode(stage, spans), np.uint8)
+    x = torch.from_numpy(stage.copy()).to(cuda)
+    got = lpx.lpx_dyn(x, stage.size, spans, False)
+    assert np.array_equal(got.cpu().numpy(), want)
+    back = lpx.lpx_dyn(got, stage.size, spans, True)
+    assert torch.equal(back, x)

@@ -22,12 +22,13 @@ from jampack_tpu.runtime import pipeline as jpipeline
 from jampack_tpu.runtime.engines import NativeEngine
 from jampack_tpu.stages import ans as jans
 from jampack_tpu.stages import filters as jfilters
+from jampack_tpu.stages import lpx as jlpx
 from jampack_tpu.stages import lz77 as jlz77
 from jampack_tpu_torch import cli
 from jampack_tpu_torch.format import checksum, constants, framing, tables, varint
 from jampack_tpu_torch.runtime import device_decode as dd
 from jampack_tpu_torch.runtime import options
-from jampack_tpu_torch.stages import ans, filters, lz77
+from jampack_tpu_torch.stages import ans, filters, lpx, lz77
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,7 +74,8 @@ def _public(mod):
 @pytest.mark.parametrize("port,ref", [(constants, jconstants),
                                       (tables, jtables), (varint, jvarint),
                                       (framing, jframing),
-                                      (options, jpipeline)])
+                                      (options, jpipeline),
+                                      (lpx, jpipeline)])
 def test_copied_constants_equal(port, ref):
     mine = _public(port)
     assert mine
@@ -111,6 +113,17 @@ def test_copied_functions_agree():
         for w in (0, 1, 5, 32):
             assert np.array_equal(filters._apply(x, t, w),
                                   jfilters._apply(x, t, w))
+    for n in (0, 1, 3, 4, 30, 31, 4001, 1 << 20):
+        for spans in (1, 4, 16, 4096):
+            assert lpx._split_spans(n, spans) == jlpx._split_spans(n, spans)
+    for before, after, n in ((0, 0, 0), (5, 5, 100), (0, 1, 100), (0, 0, 1),
+                             (3, 1, 50), (100, 200, 10000),
+                             (100, 199, 10000)):
+        a = np.zeros(n, np.uint8)
+        a[before:] = 1
+        b = np.zeros(n, np.uint8)
+        b[after:] = 1
+        assert lpx.gain_gate(before, after, n) == jpipeline._lpx_gain_gate(a, b)
 
 
 def test_framing_and_block_meta_agree():
