@@ -76,16 +76,20 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                once a block; its decode on cuda, K10 once; K10 against its
                plain version, exact, both ways on the short lines' 4,097
                spans, timed, also with each padding of a span's shared
-               memory (0 and 1 word), and that block's stage split both
-               ways
+               memory (0 and 1 record), with 1, 2, 5 and 20 spans a
+               warp and with eight-word records, exact, and that block's
+               stage split both ways
  16. JAM -S4   the log records through `cli c -m3 -f1 -S4` (JAM framing):
                byte-identical to the oracle and decoded; K10 timed both
-               ways at 4 spans of 2 MiB, held against the oracle
+               ways at 4 spans of 2 MiB, held against the oracle, and with
+               four-word records, held against the eight-word ones
  17. defaults  8 MiB of text, its last tenth log records, encoded by the
                oracle with the reference's default flags (-m0 -f1 -S4,
                JAM) and with -m1, decoded through `cli d`: exact, K11
                twice a block and K10 once; K11 against its plain version on
-               each archive's lz stage (one token; many on -m1), timed
+               each archive's lz stage (one token; many on -m1), timed;
+               on the -m1 stage also at each sub-chain length D of 8-64,
+               exact, and the time of its head and of each chain phase
  18. golden    all eight golden fixtures decode to golden_input.bin
  19. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
                of the codec runs it), exact against its plain version at
@@ -104,11 +108,17 @@ its decode time, zero_lens_ms and one_block (the probes above) and
 path_ms, its time on the -f2 path's own rows, K7 group_ms, its time
 a launch, store_ms and zero_bytes_ms (the probes above), and score_ms,
 that of the f32 scores of the same tables, K10 its decode time, its
-times at the JAM shape, jam_ms, and with each padding of a span's shared
-memory, ms_by_pad, and K11, its headline on the -m1 stage beside the -m1
-decode's launches, its cycles_per_token and its rows on the -m0 stage,
-m0, and on the production stream's one-token stage, one_token, each with
-the path and launches of its own run),
+times at the JAM shape, jam_ms, and with four-word records,
+jam_four_word_ms, at -S4096 with eight-word records, eight_word_ms,
+with each padding of a span's shared memory, ms_by_pad, and by spans a
+warp, ms_by_lanes, and K11, its headline on the -m1 stage beside the -m1
+decode's launches, its cycles_per_token, depth_ms and phase_ms (the D
+sweep and the phases above; its bound is bytes and operations alone,
+and serial_ms the floor of a one-thread walk, outside it) and its rows
+on the -m0 stage, m0, and on the production stream's one-token stage,
+one_token (with
+fetch_ms, the time of a status fetch alone), each with the path and
+launches of its own run),
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -143,6 +153,9 @@ HBM_BPS = 3.35e12
 OPS_PER_S = 67e12
 DEP_CYCLES = 4
 CLOCK_HZ = 1.98e9
+# K11's calls each fetch their status, so a few of them time unevenly:
+# its timings average this many
+K11_REPS = 50
 
 
 def textlike(n: int, seed: int):
@@ -308,8 +321,9 @@ def cycles_per_step(ms: float, steps: int) -> float:
 def k11_parity(stages, args, dev) -> dict:
     """K11 on one lz stage's arguments (buf, n, max_tokens, out_cap),
     exact against its plain version (every output array and the count,
-    length and bad flag), timed as the stage calls it: one launch and one
-    status fetch.  Returns the kernels JSON row without launches."""
+    length and bad flag), timed as the stage calls it: the head and up to
+    9 chain launches, one or two status fetches.  Returns the kernels JSON
+    row without launches."""
     import torch
 
     buf, n, max_tokens, out_cap = args
@@ -325,16 +339,56 @@ def k11_parity(stages, args, dev) -> dict:
                                   lambda a: torch.from_numpy(a).to(dev)), 5)
     tok, bad = int(got[5][0]), bool(got[5][2])
     check(not bad, "the token parse flagged a stream the path decodes")
-    row["ms"] = cuda_ms(lambda: stages.lz_parse(*args), 5)
-    # the chain of a token: the window load (an L1 hit counted as 8 op
-    # latencies, 32 cycles) and the varint arithmetic that finds the next
-    # token's start (6 dependent ops); about 60 integer ops a token.  The
-    # bytes: a 16-byte window a token (the literal runs between are not
-    # read), the five int32 slots of max_tokens + 1, the 3-int status
+    # timed again after the plain version, which leaves the card idle for
+    # tens of ms: the first of two timings, discarded, warms it up
+    for _ in range(2):
+        row["ms"] = cuda_ms(lambda: stages.lz_parse(*args), K11_REPS)
+    # the bound: what any parse must move, a 16-byte window a token (the
+    # literal runs between are not read), the five int32 slots of
+    # max_tokens + 1 written once and the 3-int status; about 60 integer
+    # ops a token.  serial_ms is the floor of the one-thread walk: t
+    # tokens of 14 dependent ops (the window load as 8, the varint
+    # arithmetic 6).  The design's own floor, the stage read once by its
+    # candidate pass and its t / D hops of the jump table (each a load,
+    # counted as 8 op latencies, and a sign test), is printed apart
+    hops = -(-tok // stages.LZ_JUMP)
+    design = max(n / HBM_BPS * 1e3, bound(0, 0, hops, 9)["serial_ms"])
+    print(f"lz_parse ({n} B, {tok} tokens): the design's floor "
+          f"{design:.5f} ms (the stage read once; {hops} hops of D = "
+          f"{stages.LZ_JUMP})")
     return {**row, "tokens": tok, "stream_bytes": n,
             "cycles_per_token": cycles_per_step(row["ms"], max(tok, 1)),
-            **bound(16 * tok + 20 * (max_tokens + 1) + 12, 60 * tok, tok,
-                    14)}
+            **bound(16 * tok + 20 * (max_tokens + 1) + 12, 60 * tok, 0, 0),
+            "serial_ms": bound(0, 0, tok, 14)["serial_ms"]}
+
+
+def k11_sweep(stages, args, want) -> dict:
+    """K11 on one lz stage at each sub-chain length D, exact against
+    `want` (its outputs at the wrapper's D), timed as the stage calls it;
+    and, at the wrapper's D, the time of the head (with its fetch) and of
+    each chain phase (the differences of runs that stop after it).
+    Returns {"jump": D, "depth_ms": {D: ms}, "phase_ms": {phase: ms}}."""
+    import torch
+
+    depth_ms = {}
+    for depth in (8, 16, 32, 64):
+        got = stages._lz_parse_at(*args, jump=depth)
+        check(all(torch.equal(g, w) for g, w in zip(got[:5], want[:5]))
+              and got[5:] == want[5:], f"lz_parse at D = {depth} differs")
+        depth_ms[str(depth)] = cuda_ms(
+            lambda: stages._lz_parse_at(*args, jump=depth), K11_REPS)
+    upto = [cuda_ms(lambda: stages._lz_parse_at(*args, stop=k), K11_REPS)
+            for k in range(6)]
+    names = ["head", "candidates", "jump table", "hops", "sub-chains",
+             "finish"]
+    phase_ms = {names[0]: upto[0], **{
+        names[k]: upto[k] - upto[k - 1] for k in range(1, 6)}}
+    print("lz_parse by D: " + ", ".join(
+        f"D = {d}: {v:.4f} ms" for d, v in depth_ms.items())
+        + f"; at D = {stages.LZ_JUMP}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in phase_ms.items()))
+    return {"jump": stages.LZ_JUMP, "depth_ms": depth_ms,
+            "phase_ms": phase_ms}
 
 
 def worst_case(name, run, plain, want, path):
@@ -642,8 +696,12 @@ def main() -> int:
                                    header.lpx_spans, dev)
         k11_one = k11_parity(device_stages, calls[0], dev)
         check(k11_one["tokens"] == 1, "the store stream holds more tokens")
+        # the floor of any parse: one fetch of a five-int status
+        status = torch.zeros(5, dtype=torch.int32, device=dev)
+        k11_one["fetch_ms"] = cuda_ms(lambda: status.tolist(), 20)
         print(f"lz_parse (one token, {k11_one['stream_bytes']} B): "
-              f"{k11_one['ms']:.4f} ms, launch and status fetch")
+              f"{k11_one['ms']:.4f} ms, launch and status fetch (a fetch "
+              f"alone {k11_one['fetch_ms']:.4f} ms)")
 
         # ---- 6. encode kernel parity at the slice shapes of block 0
         opt = Options(blocksize=BLOCK, match_finder=3, filters=0,
@@ -1060,25 +1118,61 @@ def main() -> int:
             "decode_ms": row_d["ms"], "decode_plain_ms": row_d["plain_ms"],
             "decode_cycles_per_step": cycles_per_step(row_d["ms"], mx)}
         # the two layouts of a span's shared memory side by side
-        # (csrc/lpx_walk.cu, Banks): a multiple of 32 words, and one word
-        # more; the headline rows use lpx.BANK_PAD
+        # (csrc/lpx_walk.cu, Banks): a multiple of 128 bytes, and one
+        # record more; the headline rows use lpx.BANK_PAD
         by_pad = {}
         for pad in (0, 1):
             by_pad[str(pad)] = {}
             for label, b_, s_, l_, d_, want_p in (
                     ("encode", buf_e, st_e, ln_e, False, enc),
                     ("decode", buf_d, st_d, ln_d, True, dec)):
-                check(torch.equal(lpx.lpx_walk(b_, s_, l_, d_, mx, pad),
+                check(torch.equal(lpx._lpx_walk_at(b_, s_, l_, d_, mx, pad),
                                   want_p),
                       f"lpx_walk {label} with pad {pad} differs")
                 by_pad[str(pad)][label] = cuda_ms(
-                    lambda: lpx.lpx_walk(b_, s_, l_, d_, mx, pad), 5)
+                    lambda: lpx._lpx_walk_at(b_, s_, l_, d_, mx, pad), 5)
         rows["lpx_walk"]["ms_by_pad"] = by_pad
         print(f"lpx_walk -S{SA_SPANS} by pad: " + "; ".join(
             f"pad {p}: encode {v['encode']:.4f} ms "
             f"({cycles_per_step(v['encode'], mx):.0f} cycles a step), decode "
             f"{v['decode']:.4f} ({cycles_per_step(v['decode'], mx):.0f})"
             for p, v in by_pad.items()) + f" (BANK_PAD {lpx.BANK_PAD})")
+        # spans a warp (csrc/lpx_walk.cu, Spans a block) on the same spans,
+        # each block holding the same spans: 20 is more than a block
+        # holds, so all of them share one warp
+        by_lanes = {}
+        for lanes in (1, 2, 5, 20):
+            by_lanes[str(lanes)] = {}
+            for label, b_, s_, l_, d_, want_p in (
+                    ("encode", buf_e, st_e, ln_e, False, enc),
+                    ("decode", buf_d, st_d, ln_d, True, dec)):
+                check(torch.equal(lpx._lpx_walk_at(b_, s_, l_, d_, mx,
+                                                   lanes=lanes), want_p),
+                      f"lpx_walk {label} with {lanes} spans a warp differs")
+                by_lanes[str(lanes)][label] = cuda_ms(
+                    lambda: lpx._lpx_walk_at(b_, s_, l_, d_, mx, lanes=lanes),
+                    5)
+        rows["lpx_walk"].update(lanes=lpx.SPANS_A_WARP, ms_by_lanes=by_lanes)
+        # eight-word records on the same spans beside the four words the
+        # wrapper takes here (csrc/lpx_walk.cu: half the spans an SM)
+        eight = {}
+        for label, b_, s_, l_, d_, want_p in (
+                ("encode", buf_e, st_e, ln_e, False, enc),
+                ("decode", buf_d, st_d, ln_d, True, dec)):
+            check(torch.equal(lpx._lpx_walk_at(b_, s_, l_, d_, mx, wide=True),
+                              want_p),
+                  f"lpx_walk {label} with eight-word records differs")
+            eight[label] = cuda_ms(
+                lambda: lpx._lpx_walk_at(b_, s_, l_, d_, mx, wide=True), 5)
+        rows["lpx_walk"]["eight_word_ms"] = eight
+        print(f"lpx_walk -S{SA_SPANS} with eight-word records: encode "
+              f"{eight['encode']:.4f} ms, decode {eight['decode']:.4f}")
+        print(f"lpx_walk -S{SA_SPANS} by spans a warp: " + "; ".join(
+            f"{p}: encode {v['encode']:.4f} ms "
+            f"({cycles_per_step(v['encode'], mx):.0f} cycles a step), decode "
+            f"{v['decode']:.4f} ({cycles_per_step(v['decode'], mx):.0f})"
+            for p, v in by_lanes.items())
+            + f" (SPANS_A_WARP {lpx.SPANS_A_WARP})")
         print(f"lpx_walk -S{SA_SPANS}: {st_e.numel()} spans of <= {mx} B over "
               f"{n2} B; encode {row['ms']:.4f} ms "
               f"({rows['lpx_walk']['cycles_per_step']:.0f} cycles a step), "
@@ -1132,14 +1226,21 @@ def main() -> int:
                                                           dev)
             dd.decode_block_device(pay_r, crc, BLOCK, 120, 0, spans, dev)
         check(len(calls) == 2, "the JAM block did not run K10 both ways")
-        jam = {}
+        # both layouts of a record: eight words (the wrapper's past 64
+        # KiB) and four, which must give the same bytes
+        jam, jam_four = {}, {}
         for (b_, s_, l_, d_, m_) in calls:
             label = "decode" if d_ else "encode"
+            check(torch.equal(lpx._lpx_walk_at(b_, s_, l_, d_, m_, wide=False),
+                              lpx.lpx_walk(b_, s_, l_, d_, m_)),
+                  f"lpx_walk {label} (JAM) differs with four-word records")
             jam[label] = cuda_ms(lambda: lpx.lpx_walk(b_, s_, l_, d_, m_), 2)
+            jam_four[label] = cuda_ms(
+                lambda: lpx._lpx_walk_at(b_, s_, l_, d_, m_, wide=False), 2)
         jmx = calls[0][4]
         rows["lpx_walk"].update(
             jam_spans=calls[0][1].numel(), jam_steps=jmx,
-            jam_ms=jam, jam_bound_ms=bound(
+            jam_ms=jam, jam_four_word_ms=jam_four, jam_bound_ms=bound(
                 nbytes(calls[0][0]) * 2, 60 * calls[0][0].numel(), jmx,
                 11)["bound_ms"],
             jam_cycles_per_step={k: cycles_per_step(v, jmx)
@@ -1148,9 +1249,10 @@ def main() -> int:
               f"B; encode {jam['encode']:.3f} ms, decode {jam['decode']:.3f} "
               f"ms ({rows['lpx_walk']['jam_cycles_per_step']['encode']:.0f} /"
               f" {rows['lpx_walk']['jam_cycles_per_step']['decode']:.0f} "
-              f"cycles a step); bound {rows['lpx_walk']['jam_bound_ms']:.3f}"
-              " ms (held against the oracle: the plain walk would take "
-              "minutes)")
+              f"cycles a step); four-word records {jam_four['encode']:.3f} /"
+              f" {jam_four['decode']:.3f} ms; bound "
+              f"{rows['lpx_walk']['jam_bound_ms']:.3f} ms (held against the "
+              "oracle: the plain walk would take minutes)")
 
         # ---- 17. the reference's default flags (-m0 -f1 -S4, JAM) and -m1
         # on 8 MiB of text, a tenth of it log records, through `cli d`
@@ -1179,6 +1281,9 @@ def main() -> int:
                                        h.lanes, h.lpx_spans, dev)
             k11[label] = k11_parity(device_stages, calls[0], dev)
             k11_launches[label] = m_launches[3]
+            if label == "-m1":
+                k11_d = k11_sweep(device_stages, calls[0],
+                                  device_stages.lz_parse(*calls[0]))
             print(f"default flags {label}: oracle {host_s:.1f} s; `cli d` "
                   f"{m_s:.3f} s, exact; lz_parse {m_launches[3]} launches "
                   f"(2 a block), lpx_walk {m_launches[-1]}; the lz stage: "
@@ -1191,7 +1296,7 @@ def main() -> int:
         # the headline: the -m1 stage beside the -m1 decode's launches;
         # each other stage beside the launches of its own path's run
         rows["lz_parse"] = {
-            **k11["-m1"],
+            **k11["-m1"], **k11_d,
             "m0": {**k11["-m0"], "path": "decode -m0 -f1 -S4 (JAM)",
                    "launches": k11_launches["-m0"]},
             "one_token": {**k11_one, "path": "decode (production JT3)",

@@ -43,8 +43,13 @@ _SIGNATURES = {
     "jt_joint_hist": [_P, _I64, _P, _I, _P, _P],
     "jt_lpc": [_P, _I64, _P, _I, _I, _P, _P],
     "jt_block_scatter": [_P, _P, _I, _I64, _P, _P],
-    "jt_lpx_walk": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "jt_lz_parse": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "jt_lpx_walk": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "jt_lpx_walk_at": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "jt_lz_parse": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "jt_lz_parse_chain": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "jt_lz_parse_chain_at": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "jt_rank_decode_staged": [_I],
     "jt_rank_encode_staged": [_I64],
 }

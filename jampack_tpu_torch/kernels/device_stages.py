@@ -18,6 +18,7 @@ LPC, lpx.py for the Lpx span walk, and K11 here for the LZ token parse);
 the rest is plain PyTorch.
 """
 
+import ctypes
 import time
 
 import numpy as np
@@ -37,6 +38,22 @@ from .rans import decode_lanes_wide
 LZ_KERNEL = Kernel("lz_parse", "jt_lz_parse",
                    "jampack_tpu_torch/csrc/lz_parse.cu",
                    "jampack_tpu/kernels/device_stages.py:269")
+# K11's phases after its head, when the stream goes on: the same kernel, so
+# its launches are not counted apart (LZ_KERNEL counts one a parse)
+_LZ_CHAIN = Kernel("lz_parse_chain", "jt_lz_parse_chain",
+                   "jampack_tpu_torch/csrc/lz_parse.cu",
+                   "jampack_tpu/kernels/device_stages.py:269")
+# the chain phases ending after any of them, for the phase times of
+# chip_smoke.py through _lz_parse_at; no path launches it
+_LZ_CHAIN_AT = Kernel("lz_parse_chain_at", "jt_lz_parse_chain_at",
+                      "jampack_tpu_torch/csrc/lz_parse.cu",
+                      "jampack_tpu/kernels/device_stages.py:269")
+
+# K11: the tokens its head walks serially (a stream that ends within them
+# runs nothing else), and D, the sub-chain length of its pointer jumping.
+# PERF.md has the sweep that chose D.
+LZ_HEAD = 16
+LZ_JUMP = 32
 
 _FBS = FILTER_BLOCK_SIZE
 _I32_MAX = 2**31 - 1
@@ -144,21 +161,150 @@ def lz_parse(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
     semantics).  Returns the int32 tensors (dst, src, lit, off, match) of
     length max_tokens + 1 on buf's device (unused dst = out_cap + 1), then
     the token count, the output length and a bad flag as host values.
-    Launches K11 (csrc/lz_parse.cu) for a CUDA tensor, one launch and one
-    fetch of its three-int status; runs lz_parse_plain for a CPU tensor."""
+    Launches K11 (csrc/lz_parse.cu) for a CUDA tensor: its head walks the
+    first LZ_HEAD tokens and fills the other slots, and one fetch of its
+    status follows; a stream that goes on runs the chain phases, with
+    sub-chains of LZ_JUMP tokens, and a second fetch: one call is the head
+    and up to 9 chain launches, counted as one.  Runs lz_parse_plain for a
+    CPU tensor."""
     if buf.dtype != torch.uint8 or buf.dim() != 1:
         raise ValueError("buf must be a (N,) uint8 tensor")
     if not buf.is_cuda:
         *arrays, t, out_len, bad = lz_parse_plain(buf, n, max_tokens, out_cap)
         return (*(torch.from_numpy(a) for a in arrays), t, out_len, bad)
-    MT = max_tokens + 1
+    return _lz_parse_at(buf, n, max_tokens, out_cap)
+
+
+def _lz_parse_at(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int,
+                 jump: int = LZ_JUMP, head: int = LZ_HEAD, stop: int = 5):
+    """lz_parse on a CUDA tensor with a head of `head` tokens and
+    sub-chains of `jump` (a power of two); lz_parse takes LZ_HEAD and
+    LZ_JUMP, the tests and the D sweep of chip_smoke.py others.  For the
+    phase times, stop < 5 ends the walk after the head (0) or after a
+    chain phase (1 candidates, 2 jump table, 3 hops, 4 sub-chains) and
+    returns None."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_cuda:
+        raise ValueError("buf must be a (N,) uint8 CUDA tensor")
+    if jump < 1 or jump & (jump - 1) or head < 0 or stop not in range(6):
+        raise ValueError("jump must be a power of two, head >= 0, stop 0-5")
     buf = buf.contiguous()
-    arrays = torch.empty(5, MT, dtype=torch.int32, device=buf.device)
-    status = torch.empty(3, dtype=torch.int32, device=buf.device)
-    LZ_KERNEL.launch(ptr(buf), buf.numel(), n, MT, out_cap,
-                     *(ptr(a) for a in arrays), ptr(status), stream_of(buf))
-    t, out_len, bad = status.tolist()
-    return (*arrays.unbind(0), t, out_len, bool(bad))
+    MT = max_tokens + 1
+    out = torch.empty(5 * MT + 5, dtype=torch.int32, device=buf.device)
+    # the head; its status: (tokens, output length, bad, whether the stream
+    # goes on, its position)
+    LZ_KERNEL.launch(ptr(buf), buf.numel(), n, MT, out_cap, head,
+                     *(_addr(out, k * MT) for k in range(6)), stream_of(buf))
+    t, out_len, bad, go_on, pos = out[5 * MT:].tolist()
+    if go_on and stop:
+        _lz_chain(buf, n, MT, out_cap, out, (pos, t, out_len), jump, stop)
+    if stop < 5:
+        return None
+    if go_on:
+        t, out_len, bad = out[5 * MT:5 * MT + 3].tolist()
+    return (*out[:5 * MT].view(5, MT).unbind(0), t, out_len, bool(bad))
+
+
+def _addr(t: torch.Tensor, words: int = 0) -> ctypes.c_void_p:
+    """The device address `words` int32 into a contiguous tensor."""
+    return ctypes.c_void_p(t.data_ptr() + 4 * words)
+
+
+def _lz_chain(buf, n: int, MT: int, out_cap: int, out, more, jump: int,
+              stop: int) -> None:
+    """K11's phases after its head, from more = (position, tokens, output
+    length), up to phase `stop` (5: all of them, out's slots and status
+    written).  Its scratch is one allocation: two jump tables over
+    [position, n), the hops, five rows of token fields and two counts."""
+    pos, t, out_len = more
+    cap = MT - t + 1
+    span = n - pos if 0 <= pos < n else 1
+    nhops = cap // jump + 2
+    scratch = torch.empty(2 * span + nhops + 5 * cap + 2, dtype=torch.int32,
+                          device=buf.device)
+    at = [0, span, 2 * span, 2 * span + nhops, 2 * span + nhops + 5 * cap]
+    args = (*(_addr(scratch, a) for a in at),
+            *(_addr(out, k * MT) for k in range(6)), stream_of(buf))
+    if stop == 5:
+        _LZ_CHAIN.launch(ptr(buf), buf.numel(), n, MT, out_cap, pos, t,
+                         out_len, jump, *args)
+    else:
+        _LZ_CHAIN_AT.launch(ptr(buf), buf.numel(), n, MT, out_cap, pos, t,
+                            out_len, jump, stop, *args)
+
+
+class _Walk:
+    """The serial parse's carry (lz_parse_core's loop state)."""
+
+    def __init__(self):
+        self.pos = self.t = self.out_len = 0
+        self.done = self.bad = False
+
+    def finished(self, n: int) -> bool:
+        return self.done or self.bad or self.pos >= n
+
+    def status(self, n: int):
+        """(tokens, output length, bad) once finished: a stream that ran
+        out without the end token is truncated."""
+        return self.t, self.out_len, self.bad or (
+            not self.done and self.t > 0 and self.pos >= n and n > 0)
+
+
+def _unused_slots(MT: int, out_cap: int):
+    return (np.full(MT, out_cap + 1, np.int32),
+            *(np.zeros(MT, np.int32) for _ in range(4)))
+
+
+def _walk(data: bytes, n: int, out_cap: int, slots, w: _Walk,
+          limit: int = None) -> None:
+    """lz_parse_core's token loop from w, for at most `limit` tokens (None:
+    until it finishes), writing the numpy slots (dst, src, lit, off,
+    match) and advancing w."""
+    d_, s_, l_, o_, m_ = slots
+    MT = d_.size
+    k = 0
+    while not w.finished(n) and (limit is None or k < limit):
+        pos = w.pos
+        win = _token_window(data, pos)
+        token = win[0]
+        q = 1
+        off, nb, b1 = _leb_from(win, pos, q, n)
+        q += nb
+        match = token >> 3
+        ext1, nb1, b2 = _leb_from(win, pos, q, n)
+        has_mext = match == 31
+        if has_mext:
+            q += nb1
+        match = _i32((ext1 + 31 if has_mext else match) + LZ_MIN_MATCH)
+        lit = token & 7
+        ext2, nb2, b3 = _leb_from(win, pos, q, n)
+        has_lext = lit == 7
+        if has_lext:
+            q += nb2
+        lit = _i32(ext2 + 7) if has_lext else lit
+        p = pos + q
+        bad = (b1 or (has_mext and b2) or (has_lext and b3) or match < 0
+               or lit < 0 or off < 0 or w.t >= MT)
+        ts = min(max(w.t, 0), MT - 1)
+        is_end = off == 0
+        rec_lit = _i32(n - p) if is_end else lit
+        rec_match = 0 if is_end else match
+        new_out = _i32(w.out_len + rec_lit + rec_match)
+        bad = bad or new_out > out_cap
+        bad = bad or (not is_end and (_i32(p + lit) >= n
+                                      or _i32(w.out_len + lit - off) < 0))
+        if not bad:
+            d_[ts] = w.out_len
+        s_[ts] = p
+        l_[ts] = rec_lit
+        o_[ts] = 0 if is_end else off
+        m_[ts] = rec_match
+        w.pos = n if is_end else _i32(p + lit)
+        if not bad:
+            w.out_len = new_out
+        w.t += 1
+        w.bad = bad
+        w.done = is_end
+        k += 1
 
 
 def lz_parse_plain(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
@@ -167,55 +313,150 @@ def lz_parse_plain(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int):
     indices below 0 as byte 0).  Returns numpy int32 arrays (dst, src,
     lit, off, match) of length max_tokens + 1 (unused dst = out_cap + 1),
     the token count, the output length and a bad flag."""
+    slots = _unused_slots(max_tokens + 1, out_cap)
+    w = _Walk()
+    _walk(buf.cpu().numpy().tobytes(), n, out_cap, slots, w)
+    return (*slots, *w.status(n))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _i32t(x: torch.Tensor) -> torch.Tensor:
+    """int64 tensor wrapped to int32 values, as _i32."""
+    return ((x + 2**31) & _M32) - 2**31
+
+
+def _tokens_at(x: torch.Tensor, n: int, pos: torch.Tensor):
+    """The token that would start at each position of pos (int64, in [0,
+    n)) of the int64 bytes x, by _walk's rules in tensor ops.  Returns
+    (src, lit, off, match, end, is_end, bad): bad holds the conditions that
+    make a token bad on its own."""
+    N = x.numel()
+    at = pos[:, None] + torch.arange(16)
+    win = torch.where(at < N, x[at.clamp(0, max(N - 1, 0))] if N else 0, 0)
+    adds = torch.tensor((0,) + _VARINT_CONSTANTS)
+
+    def leb(q):
+        b = win.gather(1, q[:, None] + torch.arange(5))
+        top = (b[:, :4] & 0x80) != 0
+        d = torch.where(top.any(1), top.long().argmax(1), 4)
+        val = torch.zeros_like(d)
+        for k in range(4):
+            val = torch.where(k < d, ((val << 7) | b[:, k]) & _M32, val)
+        last = b.gather(1, d[:, None])[:, 0]
+        val = _i32t((((val << 7) | (last & 0x7F)) + adds[d]) & _M32)
+        return val, d + 1, pos + q + d >= n
+
+    token = win[:, 0]
+    q = torch.ones_like(pos)
+    off, nb, b1 = leb(q)
+    q = q + nb
+    ext1, nb1, b2 = leb(q)
+    mext = (token >> 3) == 31
+    q = torch.where(mext, q + nb1, q)
+    match = _i32t(torch.where(mext, ext1 + 31, token >> 3) + LZ_MIN_MATCH)
+    ext2, nb2, b3 = leb(q)
+    lext = (token & 7) == 7
+    q = torch.where(lext, q + nb2, q)
+    lit = torch.where(lext, _i32t(ext2 + 7), token & 7)
+    src = pos + q
+    end = _i32t(src + lit)
+    is_end = off == 0
+    bad = (b1 | (mext & b2) | (lext & b3) | (match < 0) | (lit < 0)
+           | (off < 0) | (~is_end & (end >= n)))
+    return src, lit, off, match, end, is_end, bad
+
+
+def lz_parse_jump_plain(buf: torch.Tensor, n: int, max_tokens: int,
+                        out_cap: int, depth: int = LZ_JUMP,
+                        head: int = LZ_HEAD):
+    """K11's decomposition in tensor ops, for the CPU tests: the serial
+    head of `head` tokens; then, from its position p0 when that lies in [0,
+    n), the candidate token at every position of [p0, n), the jump table
+    next^depth by squaring, the hop walk from p0, the sub-chains of depth
+    tokens in lockstep and the scan that finds the first token at which
+    the walk stops and writes the slots up to it; a chain that leaves [0,
+    n) by a wrapped end is walked on serially.  Same contract as
+    lz_parse_plain."""
+    if depth < 1 or depth & (depth - 1) or head < 0:
+        raise ValueError("depth must be a power of two and head >= 0")
     data = buf.cpu().numpy().tobytes()
     MT = max_tokens + 1
-    d_ = np.full(MT, out_cap + 1, np.int32)
-    s_, l_, o_, m_ = (np.zeros(MT, np.int32) for _ in range(4))
-    pos = out_len = t = 0
-    done = bad = False
-    while not done and not bad and pos < n:
-        w = _token_window(data, pos)
-        token = w[0]
-        q = 1
-        off, nb, b1 = _leb_from(w, pos, q, n)
-        q += nb
-        match = token >> 3
-        ext1, nb1, b2 = _leb_from(w, pos, q, n)
-        has_mext = match == 31
-        if has_mext:
-            q += nb1
-        match = _i32((ext1 + 31 if has_mext else match) + LZ_MIN_MATCH)
-        lit = token & 7
-        ext2, nb2, b3 = _leb_from(w, pos, q, n)
-        has_lext = lit == 7
-        if has_lext:
-            q += nb2
-        lit = _i32(ext2 + 7) if has_lext else lit
-        p = pos + q
-        bad = (bad or b1 or (has_mext and b2) or (has_lext and b3)
-               or match < 0 or lit < 0 or off < 0 or t >= MT)
-        ts = min(max(t, 0), MT - 1)
-        is_end = off == 0
-        rec_lit = _i32(n - p) if is_end else lit
-        rec_match = 0 if is_end else match
-        new_out = _i32(out_len + rec_lit + rec_match)
-        bad = bad or new_out > out_cap
-        bad = bad or (not is_end and (_i32(p + lit) >= n
-                                      or _i32(out_len + lit - off) < 0))
-        if not bad:
-            d_[ts] = out_len
-        s_[ts] = p
-        l_[ts] = rec_lit
-        o_[ts] = 0 if is_end else off
-        m_[ts] = rec_match
-        pos = n if is_end else _i32(p + lit)
-        if not bad:
-            out_len = new_out
-        t += 1
-        done = is_end
-    # a stream that ran out without the end token is truncated
-    bad = bad or (not done and t > 0 and pos >= n and n > 0)
-    return d_, s_, l_, o_, m_, t, out_len, bad
+    slots = _unused_slots(MT, out_cap)
+    w = _Walk()
+    _walk(data, n, out_cap, slots, w, head)
+    if not w.finished(n) and 0 <= w.pos < n:
+        _chain_plain(buf.cpu().long(), n, out_cap, slots, w, depth)
+    _walk(data, n, out_cap, slots, w)
+    return (*slots, *w.status(n))
+
+
+def _chain_plain(x, n: int, out_cap: int, slots, w: _Walk, depth: int):
+    """The chain phases of lz_parse_jump_plain from w (its position in [0,
+    n)), advancing w past the token at which the walk stops."""
+    d_, s_, l_, o_, m_ = slots
+    MT = d_.size
+    p0, t0, out0 = w.pos, w.t, w.out_len
+    # 1. the candidates; a chain stops at the end token, at a token bad on
+    # its own and at an end that wrapped below 0
+    src, lit, off, match, end, is_end, bad = _tokens_at(
+        x, n, torch.arange(p0, n))
+    stop = bad | is_end | (end < 0)
+    # 2. next^depth: the position depth tokens on, or ~(the first stop)
+    jump = torch.where(stop, ~torch.arange(p0, n), end)
+    for _ in range(depth.bit_length() - 1):
+        jump = torch.where(jump < 0, jump, jump[(jump - p0).clamp(min=0)])
+    # 3. the hops, up to the token of index MT, the first with no slot
+    hops, h = [], p0
+    while True:
+        hops.append(h - p0)
+        if t0 + len(hops) * depth > MT:
+            break
+        h = int(jump[h - p0])
+        if h < 0:
+            break
+    # 4. the sub-chains in lockstep: token u = j * depth + k
+    cur = torch.tensor(hops)
+    live = torch.ones(len(hops), dtype=torch.bool)
+    steps = []
+    for _ in range(depth):
+        steps.append(torch.where(live, cur, -1))
+        live = live & ~stop[cur]
+        cur = torch.where(live, end[cur] - p0, 0)
+    idx = torch.stack(steps, 1).reshape(-1)
+    gone = torch.nonzero(idx < 0)
+    idx = idx[:int(gone[0]) if gone.numel() else idx.numel()]
+    stopped = torch.nonzero(stop[idx])
+    T = min(int(stopped[0]) + 1 if stopped.numel() else idx.numel(),
+            MT - t0 + 1)
+    idx = idx[:T]
+    # 5. the scan: each token's output length before it, its badness by
+    # the prefix, the first token at which the walk stops
+    e = is_end[idx]
+    rl = torch.where(e, _i32t(n - src[idx]), lit[idx])
+    rm = torch.where(e, 0, match[idx])
+    ro = torch.where(e, 0, off[idx])
+    ln = (rl + rm) & _M32
+    out = _i32t(out0 + torch.cumsum(ln, 0) - ln)
+    new_out = _i32t(out + ln)
+    t = t0 + torch.arange(T)
+    bad_u = (bad[idx] | (t >= MT) | (new_out > out_cap)
+             | (~e & (_i32t(out + rl - ro) < 0)))
+    u = int(torch.nonzero(bad_u | e | (end[idx] < 0))[0])
+    # the slots up to it; slot MT - 1 takes src, lit, off and match from
+    # the token of index MT when the walk reaches it
+    ts = t[:u + 1].clamp(max=MT - 1).numpy()
+    ok = ~bad_u[:u + 1].numpy()
+    d_[ts[ok]] = out[:u + 1].numpy()[ok]
+    keep = ~((t[:u + 1] == MT - 1) & (t0 + u == MT)).numpy()
+    for a, v in ((s_, src[idx]), (l_, rl), (o_, ro), (m_, rm)):
+        a[ts[keep]] = v[:u + 1].numpy()[keep]
+    w.pos = n if bool(e[u]) else int(end[idx[u]])
+    w.t = t0 + u + 1
+    w.out_len = int(out[u] if bad_u[u] else new_out[u])
+    w.done = bool(e[u])
+    w.bad = bool(bad_u[u])
 
 
 def lz_expand(buf: torch.Tensor, d_, s_, l_, o_, out_len: int):

@@ -37,10 +37,22 @@ from ._build import Kernel, ptr, stream_of
 
 KERNEL = Kernel("lpx_walk", "jt_lpx_walk", "jampack_tpu_torch/csrc/lpx_walk.cu",
                 "jampack_tpu/kernels/lpx_tpu.py:127")
+# K10 with its layout as arguments, for the tests and the sweeps of
+# chip_smoke.py, through _lpx_walk_at; no path launches it.
+_MEASURE = Kernel("lpx_walk_at", "jt_lpx_walk_at",
+                  "jampack_tpu_torch/csrc/lpx_walk.cu",
+                  "jampack_tpu/kernels/lpx_tpu.py:127")
 
-# words added to each span's block of K10's shared memory: an odd count
-# spreads the lanes of a warp over the banks (csrc/lpx_walk.cu, Banks)
+# K10's layout, kPad and kLanes in csrc/lpx_walk.cu, fixed there (PERF.md
+# has the sweeps that chose them).  BANK_PAD: records of 16 bytes added to
+# each span's block of shared memory, which spreads the lanes of a warp
+# over the banks (Banks).  SPANS_A_WARP: spans that share a warp; a block
+# runs its spans in ceil(spans / SPANS_A_WARP) warps (Spans a block): 16
+# spans of -S4096 a block in four warps, one a scheduler.  Spans longer
+# than RING take eight-word records, shorter ones four.
 BANK_PAD = 1
+SPANS_A_WARP = 5
+RING = 64 << 10
 
 _CXT, _POS, _HITS, _MISS, _THR = range(5)
 _M32 = 0xFFFFFFFF
@@ -58,23 +70,46 @@ def _check(buf, starts, lens):
 
 
 def lpx_walk(buf: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
-             decode: bool, max_len: int, pad: int = BANK_PAD) -> torch.Tensor:
+             decode: bool, max_len: int) -> torch.Tensor:
     """Code each span buf[starts[s] : starts[s] + lens[s]] on its own model
     (decode=False: Lpx encode, True: decode).  The spans must not overlap.
     Returns a (n,) uint8 tensor holding each span's output in place of its
     input, zero where no span lies.  max_len is the longest span, which
     the caller knows on the host: it chooses K10's record layout and the
     shared memory a span takes (a longer span is coded only up to
-    max_len).  pad: see BANK_PAD."""
+    max_len)."""
     S = _check(buf, starts, lens)
     if not buf.is_cuda:
         return lpx_walk_plain(buf, starts, lens, decode)
+    return _walk(KERNEL, buf, starts, lens, S, decode, max_len)
+
+
+def _lpx_walk_at(buf: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor,
+                 decode: bool, max_len: int, pad: int = BANK_PAD,
+                 lanes: int = SPANS_A_WARP,
+                 wide: bool | None = None) -> torch.Tensor:
+    """For the tests and measurement only: lpx_walk on CUDA tensors with
+    `pad` records of padding (see BANK_PAD), `lanes` spans a warp (1-32)
+    and eight-word records if `wide`, else four where they hold the span
+    (below 16 MiB); None takes lpx_walk's choice.  The output is
+    lpx_walk's."""
+    S = _check(buf, starts, lens)
+    if not buf.is_cuda:
+        raise ValueError("K10 runs on CUDA tensors only")
+    if wide is None:
+        wide = max_len > RING
+    return _walk(_MEASURE, buf, starts, lens, S, decode, max_len, pad, lanes,
+                 int(wide))
+
+
+def _walk(kernel: Kernel, buf, starts, lens, S: int, decode: bool,
+          max_len: int, *layout) -> torch.Tensor:
     out = torch.zeros_like(buf)
     if S == 0 or buf.numel() == 0 or max_len <= 0:
         return out
     buf, starts, lens = buf.contiguous(), starts.contiguous(), lens.contiguous()
-    KERNEL.launch(ptr(buf), ptr(starts), ptr(lens), S, max_len, int(decode),
-                  pad, ptr(out), stream_of(buf))
+    kernel.launch(ptr(buf), ptr(starts), ptr(lens), S, max_len, int(decode),
+                  *layout, ptr(out), stream_of(buf))
     return out
 
 

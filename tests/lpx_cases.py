@@ -45,12 +45,15 @@ def span_bytes(kind: str, n: int, seed: int) -> np.ndarray:
     return log_records(n + at)[at:]
 
 
-def token_stream(tokens: int, seed: int, tail: int = 5) -> np.ndarray:
+def token_stream(tokens: int, seed: int, tail: int = 5, fill: int = None,
+                 end: bool = True) -> np.ndarray:
     """A valid LZ77 token stream of `tokens` tokens before the end token,
     in the -m1 format: literal runs of 0-24 bytes (7 and more take the
     literal extension), matches of 4-80 bytes (35 and more take the match
     extension) at offsets that stay inside the output, then the end token
-    and `tail` raw bytes."""
+    and `tail` raw bytes.  fill: every literal byte is this one instead of
+    a random one; end=False: no end token and no tail, the last literal run
+    ends the stream."""
     rng = np.random.default_rng(seed)
     out = bytearray()
     out_len = 0
@@ -59,10 +62,12 @@ def token_stream(tokens: int, seed: int, tail: int = 5) -> np.ndarray:
         match = int(rng.integers(4, 81))
         off = int(rng.integers(1, out_len + lit + 1))
         out += write_token(match, lit, off)
-        out += rng.integers(0, 256, lit, dtype=np.uint8).tobytes()
+        lits = rng.integers(0, 256, lit, dtype=np.uint8)
+        out += (bytes([fill]) * lit if fill is not None else lits.tobytes())
         out_len += lit + match
-    out += write_token(4, 4, 0)
-    out += rng.integers(0, 256, tail, dtype=np.uint8).tobytes()
+    if end:
+        out += write_token(4, 4, 0)
+        out += rng.integers(0, 256, tail, dtype=np.uint8).tobytes()
     return np.frombuffer(bytes(out), np.uint8)
 
 
@@ -76,12 +81,18 @@ def _wrapped_literal_stream() -> np.ndarray:
 
 
 LZ_CASES = ["wrapped", "truncated", "max_tokens", "out_cap",
-            "before_start", "many_tokens"]
+            "before_start", "many_tokens", "empty", "end_first",
+            "bad_first", "ends_at_n", "bad_off_chain", "slots_exact"]
+# the parse's bad flag on each case
+LZ_BAD = {"wrapped": True, "truncated": True, "max_tokens": True,
+          "out_cap": True, "before_start": True, "many_tokens": False,
+          "empty": False, "end_first": False, "bad_first": True,
+          "ends_at_n": True, "bad_off_chain": False, "slots_exact": False}
 
 
 def lz_case(name: str):
-    """(buf, n, max_tokens, out_cap) of one parse case; each but the last
-    sets the parse's bad flag."""
+    """(buf, n, max_tokens, out_cap) of one parse case; LZ_BAD says which
+    set the parse's bad flag."""
     if name == "wrapped":
         buf = _wrapped_literal_stream()
         return buf, buf.size, 8, 1 << 20
@@ -99,5 +110,27 @@ def lz_case(name: str):
         buf = np.frombuffer(write_token(10, 2, 50) + b"ab"
                             + write_token(4, 4, 0) + b"xyz", np.uint8)
         return buf, buf.size, 8, 1 << 20
+    if name == "empty":  # n = 0 over a buffer that holds a stream
+        return token_stream(3, 5), 0, 8, 1 << 20
+    if name == "end_first":  # the end token at byte 0: one raw run
+        buf = np.frombuffer(write_token(4, 4, 0) + bytes(range(40)),
+                            np.uint8)
+        return buf, buf.size, 8, 1 << 20
+    if name == "bad_first":  # an offset of 2^31 reads as negative
+        buf = np.frombuffer(write_token(9, 3, 2**31) + b"abc"
+                            + bytes(token_stream(30, 6)), np.uint8)
+        return buf, buf.size, 64, 1 << 20
+    if name == "ends_at_n":  # no end token: the last run ends at n
+        buf = token_stream(30, 7, end=False)
+        return buf, buf.size, 64, 1 << 20
+    if name == "bad_off_chain":
+        # every literal byte 0x7F: a token read inside a run has an offset
+        # and a literal run of 2^28 and more, past n, so most positions off
+        # the chain hold a bad token
+        buf = token_stream(60, 8, fill=0x7F)
+        return buf, buf.size, 64, 1 << 20
+    if name == "slots_exact":  # t = max_tokens + 1, every slot used
+        buf = token_stream(40, 9)
+        return buf, buf.size, 40, 1 << 20
     buf = token_stream(3000, 4)
     return buf, buf.size, 4096, 1 << 20

@@ -48,7 +48,7 @@ from jampack_tpu_torch.runtime.device_encode import (
 from jampack_tpu_torch.runtime.options import Options as PortOptions
 from ibwt_cases import CASES as CHASE_CASES
 from ibwt_cases import chase_inputs
-from lpx_cases import LZ_CASES, log_records, lz_case, span_bytes
+from lpx_cases import LZ_BAD, LZ_CASES, log_records, lz_case, span_bytes
 from rank_cases import CASES, edge_chunks, periodic, rank_rows
 from rans_cases import CASES as RANS_CASES
 from rans_cases import case as rans_case
@@ -615,39 +615,105 @@ def _spans_buffer(lens, kinds, seed):
     return np.concatenate(parts), starts, lens
 
 
-def _walk_both(cuda, buf, starts, lens, plain_on, pad=lpx.BANK_PAD):
+def _walk_both(cuda, buf, starts, lens, plain_on, *layouts):
     """K10 against lpx_walk_plain both ways (the plain version on
-    `plain_on`: the CPU steps a few spans faster, the card many), its
-    shared memory padded by `pad` words a span; decode inverts encode."""
+    `plain_on`: the CPU steps a few spans faster, the card many), in each
+    of `layouts`, the keywords of lpx._lpx_walk_at (pad, lanes, wide;
+    none: lpx_walk itself); decode inverts encode."""
     args = [torch.from_numpy(a.copy()) for a in (buf, starts, lens)]
     dev_args = [a.to(cuda) for a in args]
     p_args = [a.to(plain_on) for a in args]
     enc = lpx.lpx_walk_plain(*p_args, False)
     dec = lpx.lpx_walk_plain(enc, p_args[1], p_args[2], True)
     assert torch.equal(dec.cpu(), args[0])
-    before = lpx.KERNEL.launches
     mx = int(lens.max())
-    got = lpx.lpx_walk(*dev_args, False, mx, pad)
-    assert torch.equal(got.cpu(), enc.cpu())
-    back = lpx.lpx_walk(got, dev_args[1], dev_args[2], True, mx, pad)
-    assert torch.equal(back.cpu(), args[0])
-    assert lpx.KERNEL.launches == before + 2
+    for kw in layouts or ({},):
+        walk, kernel = (lpx.lpx_walk, lpx.KERNEL) if not kw else (
+            lambda *a: lpx._lpx_walk_at(*a, **kw), lpx._MEASURE)
+        before = kernel.launches
+        got = walk(*dev_args, False, mx)
+        assert torch.equal(got.cpu(), enc.cpu()), kw
+        back = walk(got, dev_args[1], dev_args[2], True, mx)
+        assert torch.equal(back.cpu(), args[0]), kw
+        assert kernel.launches == before + 2
 
 
 @pytest.mark.parametrize("pad", [0, 1])
 def test_lpx_kernel_at_the_s4096_shape(cuda, pad):
-    """4,096 spans of 2 KiB (packed records, the whole span in shared
+    """4,096 spans of 2 KiB (four-word records, the whole span in shared
     memory), zero, random and log-record bytes; a span's shared memory a
-    multiple of 32 words and padded to an odd count."""
+    multiple of 128 bytes, and padded by one record."""
     buf, starts, lens = _spans_buffer([2048] * 4095 + [1000],
                                       ["zeros", "random", "records"], 0)
-    _walk_both(cuda, buf, starts, lens, cuda, pad)
+    _walk_both(cuda, buf, starts, lens, cuda, {"pad": pad})
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 5, 20])
+def test_lpx_kernel_spans_a_warp_at_the_s4096_shape(cuda, lanes):
+    """Each layout of the spans-a-warp sweep on the spans of -S4096."""
+    buf, starts, lens = _spans_buffer([2048] * 4095 + [1000],
+                                      ["records", "zeros", "random"], 5)
+    _walk_both(cuda, buf, starts, lens, cuda, {"lanes": lanes})
+
+
+def _periodic(n, seed):
+    """Short periods of a few byte values, 1% of the bytes changed: the
+    step after a table store often reads the record it stored (forwarded
+    through registers), and runs start and stop on such records."""
+    rng = np.random.default_rng(seed)
+    per = int(rng.integers(1, 9))
+    x = np.tile(rng.integers(0, 4, per, dtype=np.uint8), n // per + 1)[:n]
+    flip = rng.random(n) < 0.01
+    x[flip] = rng.integers(0, 256, int(flip.sum()), dtype=np.uint8)
+    return x
+
+
+def test_lpx_kernel_on_runs_over_forwarded_records(cuda):
+    """300 spans of periodic bytes, in both record layouts and with 1 and
+    5 spans a warp."""
+    parts = [_periodic(int(n), s) for s, n in enumerate(
+        np.random.default_rng(6).integers(100, 6000, 300))]
+    lens = np.asarray([p.size for p in parts], np.int32)
+    starts = (np.cumsum(lens) - lens).astype(np.int32)
+    _walk_both(cuda, np.concatenate(parts), starts, lens, cuda, {},
+               {"wide": True}, {"lanes": 1}, {"lanes": 5, "wide": True})
+
+
+@pytest.mark.parametrize("size", [32767, 32768, 65536, 65537])
+def test_lpx_kernel_at_the_32k_and_64k_limits(cuda, size):
+    """Spans at 32 KiB (the limit of 16-bit counters) and at 64 KiB (of a
+    span held whole in shared memory; past it, the ring), in both record
+    layouts."""
+    buf, starts, lens = _spans_buffer([size, size - 1],
+                                      ["records", "zeros"], 8)
+    _walk_both(cuda, buf, starts, lens, "cpu", {},
+               {"wide": size <= lpx.RING})
+
+
+@pytest.mark.parametrize("size,kind", [
+    (2_097_217, "records"), ((1 << 24) - 1, "zeros"),
+    ((1 << 24) - 1, "records"), (1 << 24, "zeros")])
+def test_lpx_kernel_matches_native_at_the_record_limits(cuda, size, kind):
+    """One span as long as a JAM -S4 span of an 8 MiB block, and at the
+    four-word records' limit (2^24 - 1 bytes: on zeros the hit count
+    reaches 2^24 - 5) and past it (eight words), against the native
+    engine's Lpx, in both layouts where four words hold it."""
+    data = span_bytes(kind, size, 9)
+    want = np.asarray(NativeEngine().lpx_encode(data, 1), np.uint8)
+    x = torch.from_numpy(data.copy()).to(cuda)
+    st = torch.zeros(1, dtype=torch.int32, device=cuda)
+    ln = torch.full((1,), size, dtype=torch.int32, device=cuda)
+    for wide in (False, True):
+        got = lpx._lpx_walk_at(x, st, ln, False, size, wide=wide)
+        assert np.array_equal(got.cpu().numpy(), want), wide
+        assert torch.equal(
+            lpx._lpx_walk_at(got, st, ln, True, size, wide=wide), x), wide
 
 
 @pytest.mark.parametrize("size", [1 << 16, (1 << 16) + 4096])
 def test_lpx_kernel_on_long_spans(cuda, size):
-    """Spans of 64 KiB (wide records, the span in shared memory) and over
-    64 KiB (wide records, a 64 KiB ring)."""
+    """Spans of 64 KiB (four-word records, the span in shared memory) and
+    over 64 KiB (eight-word records, a 64 KiB ring)."""
     buf, starts, lens = _spans_buffer([size] * 3,
                                       ["zeros", "random", "records"], 1)
     _walk_both(cuda, buf, starts, lens, "cpu")
@@ -660,19 +726,60 @@ def test_lpx_kernel_on_tiny_spans(cuda):
     _walk_both(cuda, buf, starts, lens, cuda)
 
 
-@pytest.mark.parametrize("name", LZ_CASES)
-def test_lz_parse_kernel_matches_plain(cuda, name):
-    buf, n, max_tokens, out_cap = lz_case(name)
+def _parse_both(cuda, buf, n, max_tokens, out_cap, **kw):
+    """K11 (kw: jump, head of _lz_parse_at; none: lz_parse itself) against
+    lz_parse_plain, one launch counted."""
     want = device_stages.lz_parse_plain(torch.from_numpy(buf.copy()), n,
                                         max_tokens, out_cap)
     before = device_stages.LZ_KERNEL.launches
-    got = device_stages.lz_parse(torch.from_numpy(buf.copy()).to(cuda), n,
-                                 max_tokens, out_cap)
+    parse = device_stages._lz_parse_at if kw else device_stages.lz_parse
+    got = parse(torch.from_numpy(buf.copy()).to(cuda), n, max_tokens,
+                out_cap, **kw)
     assert device_stages.LZ_KERNEL.launches == before + 1
     for g, w in zip(got[:5], want[:5]):
         assert np.array_equal(g.cpu().numpy(), w)
     assert got[5:] == want[5:]
-    assert want[7] == (name != "many_tokens")
+    return want
+
+
+@pytest.mark.parametrize("jump,head", [(32, 16), (2, 0), (8, 0), (32, 0),
+                                       (1, 1)])
+@pytest.mark.parametrize("name", LZ_CASES)
+def test_lz_parse_kernel_matches_plain(cuda, name, jump, head):
+    """Every parse case, with K11's head and D, and with no head (the
+    chain phases from byte 0) at other D."""
+    want = _parse_both(cuda, *lz_case(name), jump=jump, head=head)
+    assert want[7] == LZ_BAD[name]
+
+
+def test_lz_parse_kernel_on_an_unaligned_buffer(cuda):
+    """A buffer at an odd address: every token window is read bytewise."""
+    buf, n, max_tokens, out_cap = lz_case("many_tokens")
+    x = torch.from_numpy(np.concatenate([[0], buf]).astype(np.uint8))
+    want = device_stages.lz_parse_plain(x[1:], n, max_tokens, out_cap)
+    got = device_stages._lz_parse_at(x.to(cuda)[1:], n, max_tokens, out_cap,
+                                     head=0)
+    for g, w in zip(got[:5], want[:5]):
+        assert np.array_equal(g.cpu().numpy(), w)
+    assert got[5:] == want[5:]
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_lz_parse_kernel_on_8mib_stages(cuda, mode):
+    """The -m0 and -m1 LZ stages of 8 MiB of text whose last tenth is log
+    records (the native engine's), at the decode's slots and out_cap, with
+    K11's head and with none (the chain phases over the whole stage)."""
+    rng = np.random.default_rng(3)
+    alpha = np.frombuffer(b" etaoinshrdlucmfwypvbgkqjxz.,\n", np.uint8)
+    n = 8 << 20
+    data = np.concatenate([alpha[rng.integers(0, 30, n - n // 10)],
+                           log_records(n // 10)])
+    stage = np.asarray(NativeEngine().lz_encode(data, mode), np.uint8)
+    out_cap = 9 << 20
+    for head in (device_stages.LZ_HEAD, 0):
+        want = _parse_both(cuda, stage, stage.size, out_cap // 256, out_cap,
+                           head=head)
+    assert not want[7]
 
 
 @pytest.mark.parametrize("name", [
