@@ -8,12 +8,15 @@ JAX and nothing of jampack_tpu: the oracle archives come from a separate
 process, `python -m jampack_tpu.cli c` with its native host engine.  The
 paths: the fused block decode of the production JT3 stream (-c16 -L4 -u960
 -S4096 -Sa, the CLI's -f1), of JAM archives with the reference's default
-flags (-m0 -f1 -S4) and -m1, and the fused block encode of the store
+flags (-m0 -f1 -S4) and -m1, the fused block encode of the store
 configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
--S0) and with the Lpx stage (-S4096 -Sa; -S4, JAM):
+-S0) and with the Lpx stage (-S4096 -Sa; -S4, JAM), and the host-LZ encode
+route (-m0/-m1/-m2: the LZ match finders on the host around the device
+stages) with the reference's default flags, -m1, -m2 and the JT3 stream:
 
   1. facts     nvidia-smi name and power limit; NVIDIA, torch, CUDA versions
-  2. build     nvcc builds the eleven kernels from csrc/, one process each
+  2. build     nvcc builds the eleven kernels from csrc/, one process each;
+               g++ the host LZ library from native/src/
   3. oracle    host encode of a 32 MiB, four-block textlike archive in the
                production stream; every block must frame lpx_spans = 0 (the
                Lpx gate drops the stage on text)
@@ -90,8 +93,19 @@ configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
                each archive's lz stage (one token; many on -m1), timed;
                on the -m1 stage also at each sub-chain length D of 8-64,
                exact, and the time of its head and of each chain phase
- 18. golden    all eight golden fixtures decode to golden_input.bin
- 19. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
+ 18. host LZ   the host-LZ encode route: `cli c` on cuda with the
+               reference's default flags (-m0 -f1 -S4, JAM) and -m1 on the
+               same 8 MiB, -m2 on its last tenth (the log records: the -m2
+               finder walks text too slowly on the host; its rate on 64
+               KiB of the text is printed), and -m0
+               with the JT3 stream (-c16 -L4 -u960 -S4096 -Sa), counts
+               zeroed before each: byte-identical to the oracle, K4, K5,
+               K6 and K10 once a block, K7 at least once; each decoded on
+               cuda; block 0's stage split with the host LZ keys (lz_pre,
+               lz) apart and the oracle's wall beside; K6 timed at the JAM
+               shape (1 MiB chunks)
+ 19. golden    all eight golden fixtures decode to golden_input.bin
+ 20. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
                of the codec runs it), exact against its plain version at
                S = 1024, 4096 and 16384 int32 elements a block, 8 Mi in
                all, timed beside index_copy_
@@ -118,7 +132,9 @@ and serial_ms the floor of a one-thread walk, outside it) and its rows
 on the -m0 stage, m0, and on the production stream's one-token stage,
 one_token (with
 fetch_ms, the time of a status fetch alone), each with the path and
-launches of its own run),
+launches of its own run); K4, K5, K6, K7 and K10 give their launches on
+each encode of phase 18, host_lz_launches, and K6 its time at the JAM
+shape, jam_ms and jam_cycles_per_step; then
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -504,6 +520,101 @@ def caught(module, name: str, calls: list):
         setattr(module, name, real)
 
 
+def host_lz_route(cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx,
+                  tmp, msrc, mixed, oracle_s, dev):
+    """Phase 18: the host-LZ encode route through `cli c` on cuda, every
+    launch count zeroed just before each encode.  The default flags and
+    -m1 on phase 17's data (its oracle archives), the -m0 JT3 stream on
+    the same data, -m2 on its last tenth, the log records: the -m2 finder
+    walks the text so slowly on the host (in the oracle and the port
+    alike; its rate on 64 KiB of the text is printed) that 8 MiB of it
+    would not fit the run.  Each archive
+    must equal the oracle's and decode back on cuda; K4, K5, K6 and K10
+    must run once a block, K7 at least once.  Then block 0's stage split
+    with the host LZ keys apart, the oracle's wall beside the port's, and
+    K6 timed at the JAM shape (1 MiB chunks, one warp each).  Returns
+    ({kernel name: {path: launches}}, K6's row entries at the JAM
+    shape)."""
+    from jampack_tpu_torch import native
+    from jampack_tpu_torch.runtime.options import Options
+
+    t0 = time.perf_counter()
+    native.lz_encode(mixed[:64 << 10], 2)
+    m2_us = (time.perf_counter() - t0) / (64 << 10) * 1e6
+    print(f"host-LZ: the -m2 finder on 64 KiB of the text: {m2_us:.1f} us "
+          f"a byte on the host (8 MiB: {m2_us * BLOCK / 1e6:.0f} s)")
+    tail = mixed[-(BLOCK // 10):]
+    tsrc = os.path.join(tmp, "records-tail.bin")
+    with open(tsrc, "wb") as f:
+        f.write(tail.tobytes())
+    jam = {"blocksize": BLOCK, "filters": 1, "lpx_spans": 4}
+    jt3 = ["-m0", "-c16", "-L4", "-u960", f"-S{SA_SPANS}", "-Sa"]
+    runs = [("-m0 -f1 -S4 (default)", [], msrc, mixed, "-m0",
+             Options(match_finder=0, **jam)),
+            ("-m1", ["-m1"], msrc, mixed, "-m1",
+             Options(match_finder=1, **jam)),
+            ("-m2 (log records)", ["-m2"], tsrc, tail, None,
+             Options(match_finder=2, **jam)),
+            ("-m0 JT3", jt3, msrc, mixed, None,
+             Options(blocksize=BLOCK, match_finder=0, filters=1,
+                     rans_lanes=4, ans_chunk=16 << 10, anchor_units=960,
+                     lpx_spans=SA_SPANS, lpx_auto=True))]
+    names = [k.name for k in all_kernels]
+    once = ["rank_encode", "model_pairs", "rans_encode", "lpx_walk"]
+    out = {name: {} for name in once + ["joint_hist"]}
+    k6 = {}
+    back = os.path.join(tmp, "host-lz.out")
+    for i, (label, flags, src, data, reuse, opt) in enumerate(runs):
+        host_arc = (os.path.join(tmp, f"mixed8{reuse}.jam") if reuse else
+                    os.path.join(tmp, f"host-lz{i}.arc"))
+        host_s = oracle_s[reuse] if reuse else oracle(src, host_arc, flags)
+        dev_arc = os.path.join(tmp, f"dev-lz{i}.arc")
+        enc_s, launches, dev_bytes = encode_cli(cli, all_kernels, src,
+                                                dev_arc, flags)
+        check(dev_bytes == read(host_arc),
+              f"the {label} archive differs from the oracle's")
+        nblk = count_blocks(dd.framing, dev_bytes)
+        got = dict(zip(names, launches))
+        for name in once:
+            check(got[name] == nblk, f"{label}: {name} launched "
+                  f"{got[name]} times for {nblk} blocks")
+        check(got["joint_hist"] >= nblk, f"{label}: joint_hist launched "
+              f"{got['joint_hist']} times for {nblk} blocks")
+        for name in out:
+            out[name][label] = got[name]
+        words = span_words(dd.framing, dev_bytes)
+        kernels = dec_kernels + ([lpx.KERNEL] if all(words) else [])
+        dec_s, _ = decode_cli(cli, kernels, dev_arc, back)
+        check(read(back) == data.tobytes(),
+              f"the {label} archive did not decode")
+        times, calls = {}, []
+        with caught(encode_stages, "rank_encode", calls):
+            t0 = time.perf_counter()
+            de.encode_block_device_ex(data[:BLOCK], opt, dev, times)
+            block_s = time.perf_counter() - t0
+        host = {k: times.pop(k) for k in ("lz_pre", "lz")}
+        print(f"host-LZ {label}: {data.size} B -> {len(dev_bytes)} B in "
+              f"{enc_s:.3f} s (`cli c`, {nblk} blocks, span words {words}),"
+              f" the oracle {host_s:.3f} s; byte-identical; `cli d` "
+              f"{dec_s:.3f} s, exact; launches " + ", ".join(
+                  f"{k}={got[k]}" for k in out))
+        print(f"host-LZ {label} block 0 stages (s): host LZ " + ", ".join(
+            f"{k}={v:.4f}" for k, v in host.items()) + "; " + ", ".join(
+            f"{k}={v:.4f}" for k, v in times.items())
+            + f"; block wall {block_s:.3f} s")
+        if i == 0:
+            rows_j, olens_j = calls[0]
+            ms = cuda_ms(lambda: encode_stages.rank_encode(rows_j, olens_j),
+                         2)
+            steps = int(olens_j.max())
+            k6 = {"jam_ms": ms, "jam_chunks": rows_j.shape[0],
+                  "jam_cycles_per_step": cycles_per_step(ms, steps)}
+            print(f"rank_encode at the JAM shape: {rows_j.shape[0]} chunks "
+                  f"of <= {steps} B, one warp each: {ms:.3f} ms "
+                  f"({k6['jam_cycles_per_step']:.0f} cycles a step)")
+    return out, k6
+
+
 def main() -> int:
     import torch
 
@@ -514,7 +625,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from jampack_tpu_torch import cli
+    from jampack_tpu_torch import cli, native
     from jampack_tpu_torch.kernels import (
         _build,
         block_scatter,
@@ -564,6 +675,9 @@ def main() -> int:
              if "Used" in ln or "Compiling entry" in ln]
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s,"
           f" built={info['built']}); " + " | ".join(ptxas))
+    lz_info = native.build()
+    print(f"build: the host LZ library (g++) {lz_info['seconds']:.1f} s, "
+          f"built={lz_info['built']}")
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "textlike32.bin")
@@ -1261,10 +1375,10 @@ def main() -> int:
                                 log_records(BLOCK // 10)])
         with open(msrc, "wb") as f:
             f.write(mixed.tobytes())
-        k11, k11_launches = {}, {}
+        k11, k11_launches, oracle_s = {}, {}, {}
         for label, flags in (("-m0", []), ("-m1", ["-m1"])):
             marc = os.path.join(tmp, f"mixed8{label}.jam")
-            host_s = oracle(msrc, marc, flags)
+            host_s = oracle_s[label] = oracle(msrc, marc, flags)
             nblk = count_blocks(dd.framing, read(marc))
             m_s, m_launches = decode_cli(cli, dec_kernels + [lpx.KERNEL],
                                          marc, back)
@@ -1302,7 +1416,17 @@ def main() -> int:
             "one_token": {**k11_one, "path": "decode (production JT3)",
                           "launches": dec_launches[3]}}
 
-    # ---- 18. golden fixtures: all eight archives
+        # ---- 18. the host-LZ encode route: `cli c` with the reference's
+        # default flags (-m0 -f1 -S4, JAM), -m1, -m2 and the -m0 JT3
+        # stream on the same data, byte-identical to the oracle, decoded
+        lz_launches, k6_jam = host_lz_route(
+            cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx, tmp,
+            msrc, mixed, oracle_s, dev)
+        for name, launches in lz_launches.items():
+            rows[name]["host_lz_launches"] = launches
+        rows["rank_encode"].update(k6_jam)
+
+    # ---- 19. golden fixtures: all eight archives
     import io
 
     fixtures = os.path.join(HERE, "tests", "fixtures")
@@ -1317,7 +1441,7 @@ def main() -> int:
         check(out.getvalue() == gold, f"golden {name} decoded wrongly")
     print(f"golden: {', '.join(names)} -> {len(gold)} bytes each, exact")
 
-    # ---- 19. K9: the block scatter of the DMA measuring tool
+    # ---- 20. K9: the block scatter of the DMA measuring tool
     rng = np.random.default_rng(0)
     k9 = {}
     for S in (1024, 4096, 16384):

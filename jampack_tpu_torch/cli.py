@@ -1,18 +1,19 @@
 """Command line of the port.
 
     python -m jampack_tpu_torch.cli d archive output [--device cuda|cpu]
-    python -m jampack_tpu_torch.cli c input archive -m3 -f0|-f1|-f2 [-S# -Sa -b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli c input archive [-m0..-m3 -f0|-f1|-f2 -S# -Sa -b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
 
 d decodes on the GPU, every archive the JAX package's engines write.  c
 encodes on the GPU (--engine fused, the only engine and the default),
-every block of any length, in the configurations the port has: -m3
-(store), -f0/-f1/-f2 (the filter search on the device) and any Lpx span
-count -S# (0 skips the stage), with -Sa the per-block gate that frames
-spans 0 where the stage gains too little.  It refuses -m0/-m1/-m2 (the
-host-LZ route) and -f3 with a message naming what is not ported yet;
-`python -m jampack_tpu.cli c` encodes those on the host.  The device
-defaults to cuda; there is no fallback to the CPU: --device cpu runs the
-plain PyTorch versions of the kernels and exists for tests.  Flags and
+every block of any length: the LZ match finders -m0/-m1/-m2 on the host
+around the device stages, or -m3 (store) all on the device; -f0/-f1/-f2
+(the filter search on the device); any Lpx span count -S# (0 skips the
+stage), with -Sa the per-block gate that frames spans 0 where the stage
+gains too little.  With no flag it writes the reference's default JAM
+archive (-m0 -f1 -S4).  It refuses -f3 with a message naming what is not
+ported yet; `python -m jampack_tpu.cli c` encodes it on the host.  The
+device defaults to cuda; there is no fallback to the CPU: --device cpu
+runs the plain PyTorch versions of the kernels and exists for tests.  Flags and
 messages are jampack_tpu.cli's (_parse is a copy).
 """
 
@@ -23,7 +24,6 @@ from .format.constants import DEFAULT_BLOCKSIZE, MAX_BLOCKSIZE, MIN_BLOCKSIZE
 from .runtime.device_decode import decompress_stream_device
 from .runtime.device_encode import compress_stream_device
 from .runtime.options import (
-    LZ_MODE_STORE,
     Options,
     validate_lpx_spans,
     validate_match_finder,
@@ -115,9 +115,6 @@ def _parse(argv):
 
 def _fused_unsupported(opt) -> str:
     """Why the device encode cannot encode with `opt`, or '' when it can."""
-    if opt.match_finder != LZ_MODE_STORE:
-        return (f"-m{opt.match_finder}: the host-LZ encode route is not "
-                f"ported yet (use -m3, or {HOST_ENCODE} for a host encode)")
     if opt.filters not in (0, 1, 2):
         return (f"-f{opt.filters}: the -f3 device filter search is not "
                 f"ported yet (use -f0/-f1/-f2, or {HOST_ENCODE})")

@@ -1,18 +1,19 @@
 """The per-block encode chain on the device, stage by stage.
 
-Counterpart of jampack_tpu/kernels/encode_stages.py in the store
-configuration (-m3):
+Counterpart of jampack_tpu/kernels/encode_stages.py:
 
-    LZ store framing -> filters (-f0 headers, or the picked -f1/-f2
-    configs applied per 64 KiB chunk) -> Lpx (spans > 0; with lpx_auto
-    kept only when the gate passes) -> LZ store framing
-    -> forward BWT + anchors -> per chunk: SRC rank -> RLE0 -> lane deal
-    -> per chain: model pass -> reverse interleaved rANS
+    [LZ stage 1] -> encode_front: filters (-f0 headers, or the picked
+    -f1/-f2 configs applied per 64 KiB chunk) -> Lpx (spans > 0; with
+    lpx_auto kept only when the gate passes) -> [LZ stage 4]
+    -> encode_back: forward BWT + anchors -> per chunk: SRC rank -> RLE0
+    -> lane deal -> per chain: model pass -> reverse interleaved rANS
 
-Every stage length is a function of the block length alone (a filter
-config or the Lpx stage changes bytes, not lengths).  Tensors are sized by
-those lengths (the JAX chain's pow2 capacities bound its jit variants;
-PyTorch runs eagerly).  The serial walks are hand-written CUDA kernels:
+The LZ stages are runtime/device_encode.py's: the host's match finders,
+or in the store configuration (-m3) an end token the device writes ahead
+of the bytes.  Within the front and the back, a filter config or the Lpx
+stage changes bytes, not lengths.  Tensors are sized by those lengths (the
+JAX chain's pow2 capacities bound its jit variants; PyTorch runs
+eagerly).  The serial walks are hand-written CUDA kernels:
 the SRC rank encode (K6, here), the LPC filter recurrence (K8, lpc.py), the
 Lpx span walk (K10, lpx.py), the model pass (K4) and the reverse rANS (K5)
 in rans_encode.py; the rest is plain PyTorch.
@@ -284,39 +285,42 @@ def deal(syms: torch.Tensor, rlens: torch.Tensor, lanes: int):
     return chains.to(torch.uint16), crlens, max_rlen
 
 
-def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
-                      chunk: int, lanes: int, lpx_spans: int = 0,
-                      lpx_auto: bool = False, times: dict = None):
-    """The whole per-block encode chain on data's device, in the store
-    configuration (-m3).
+class Marks:
+    """One clock over a block's stages: mark(name) synchronizes the device
+    and adds the wall seconds since the last mark to times[name].  With
+    times None nothing is timed."""
 
-    data: (n,) uint8, any n >= 0.  fconfigs: None for -f0, else the (F, 2)
-    int32 (type, width) picks of the filter search.  lpx_spans > 0 runs the
-    Lpx stage on that many spans; with lpx_auto it is kept only where
-    pipeline._lpx_gain_gate's integer compare passes.  Returns (bufs (NL,
-    4*max_rlen+16) uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C, 256)
-    int32, rlens (C,) int32, lpx_kept bool) for the host splicer: NL = C *
-    max(lanes, 1) chains in chunk-major order, chain payload l = bufs[l,
-    ptrs[l]:]; lpx_kept says whether the block carries the Lpx stage (its
-    span word is lpx_spans, else 0).  With a dict `times`, each stage is
-    synchronized and its wall seconds recorded."""
-    dev = data.device
-    t0 = time.perf_counter()
+    def __init__(self, dev, times):
+        self.dev, self.times, self.t0 = dev, times, time.perf_counter()
 
-    def mark(name):
-        nonlocal t0
-        if times is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            times[name] = times.get(name, 0.0) + now - t0
-            t0 = now
+    def __call__(self, name):
+        if self.times is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        self.times[name] = self.times.get(name, 0.0) + now - self.t0
+        self.t0 = now
 
-    # 1. LZ store framing; 2. filters; 3. Lpx; 4. the second LZ store
-    # framing; 5. forward BWT: trailing n3 % units bytes raw, anchors
-    # appended
-    tok = torch.as_tensor(END_TOKEN, device=dev)
-    s2 = filter_stage(torch.cat([tok, data]), fconfigs)
+
+def _no_mark(name):
+    pass
+
+
+def encode_front(s1: torch.Tensor, fconfigs=None, *, lpx_spans: int = 0,
+                 lpx_auto: bool = False, mark=_no_mark):
+    """Stages 2 and 3 of a block on s1's device: filters, then Lpx
+    (encode_front_core).
+
+    s1: (n1,) uint8, any stage-1 stream, n1 >= 1.  fconfigs: None for -f0,
+    else the (F, 2) int32 (type, width) picks of the filter search over
+    s1.  lpx_spans > 0 runs the Lpx stage on that many spans; with
+    lpx_auto it is kept only where pipeline._lpx_gain_gate's integer
+    compare passes.  Returns (s2 (n2,) uint8, lpx_kept), n2 = n1 + 2 *
+    ceil(n1 / 65,536); lpx_kept says whether the block carries the Lpx
+    stage (its span word is lpx_spans, else 0).  mark: a Marks, called
+    after each stage."""
+    s2 = filter_stage(s1, fconfigs)
     mark("filters")
     kept = lpx_spans > 0
     if kept:
@@ -327,9 +331,26 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
         if kept:
             s2 = s2l
         mark("lpx")
-    s4 = forward_bwt(torch.cat([tok, s2]), units)
+    return s2, kept
+
+
+def encode_back(s3: torch.Tensor, *, units: int, chunk: int, lanes: int,
+                mark=_no_mark):
+    """Stages 5 and 6 of a block on s3's device: the forward BWT with its
+    anchors, then per chunk SRC rank (K6) -> RLE0 -> lane deal, per chain
+    the model pass (K4) and the reverse interleaved rANS (K5)
+    (encode_back_core).
+
+    s3: (n3,) uint8, the stage-4 LZ stream, any n3 >= 0.  Returns (bufs
+    (NL, 4*max_rlen+16) uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C,
+    256) int32, rlens (C,) int32) for the host splicer: C = ceil((n3 + 4 *
+    units) / chunk) chunks, NL = C * max(lanes, 1) chains in chunk-major
+    order, chain payload l = bufs[l, ptrs[l]:].  mark as in
+    encode_front."""
+    # forward BWT: trailing n3 % units bytes raw, anchors appended
+    s4 = forward_bwt(s3, units)
     mark("bwt")
-    # 6. entropy, every chunk at once: rank -> RLE0 -> lane deal
+    # entropy, every chunk at once: rank -> RLE0 -> lane deal
     rows, olens = chunk_rows(s4, chunk)
     ranks, freqs = rank_encode(rows, olens)
     mark("rank")
@@ -337,9 +358,9 @@ def encode_block_core(data: torch.Tensor, fconfigs=None, *, units: int,
     mark("rle0")
     chains, crlens, max_rlen = deal(syms, rlens, lanes)
     mark("deal")
-    # 7. model pass, then the reverse interleaved rANS
+    # model pass, then the reverse interleaved rANS
     lows, fqs, oks = model_pairs_wide(chains, crlens, max_rlen)
     mark("model")
     bufs, ptrs = rans_reverse_encode_wide(lows, fqs, crlens, max_rlen)
     mark("rans")
-    return bufs, ptrs, oks, freqs, rlens, kept
+    return bufs, ptrs, oks, freqs, rlens

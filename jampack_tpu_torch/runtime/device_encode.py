@@ -1,40 +1,43 @@
 """Encode blocks on the GPU.
 
-The encode mirror of device_decode.py.  Every O(n) stage of a block runs on
-the device (kernels/encode_stages.encode_block_core); the host computes the
-CRC (the shared format.checksum, as decode checks it) and splices format
+The encode mirror of device_decode.py.  The filters, Lpx, the forward BWT
+and the entropy stage run on the device (kernels/encode_stages.py); the
+host computes the CRC (the shared format.checksum, as decode checks it),
+runs the LZ match finders of -m0/-m1/-m2 (serial hash-chain walks, as in
+the JAX package's encode_block_device_lz; in the store configuration -m3
+both LZ stages are a framing the device writes) and splices format
 metadata (chunk headers, lane tables) around the device-made chain
 payloads, which are compacted on the device and fetched once.
 
-Supported configuration: match_finder=3 (store), filters 0, 1 or 2 (the
+Supported configuration: match_finder 0, 1, 2 or 3, filters 0, 1 or 2 (the
 -f1/-f2 config search runs on the device, kernels/filters_search.py), any
 Lpx span count, with or without the per-block gate (lpx_auto), at every
-block length from 0 up; archives are byte-identical to the host engines'
-at the same Options.  Anything else raises NotImplementedError naming the
-stage that is not ported yet; there is no host route, and asking for CUDA
-without a card raises RuntimeError.
+block length from 0 up; archives are byte-identical to the native host
+engine's at the same Options.  -f3 raises NotImplementedError (its device
+filter search is not ported yet); there is no host route for any block,
+and asking for CUDA without a card raises RuntimeError.
 """
-
-import time
 
 import numpy as np
 import torch
 
 from ..format import framing
 from ..format.checksum import integrity_check
-from ..format.constants import ANS_CHUNK_SIZE, FILTER_BLOCK_SIZE
+from ..format.constants import ANS_CHUNK_SIZE
 from ..format.varint import encode_leb128
 from ..stages.ans import write_chunk_header
-from .options import LZ_MODE_STORE, Options
+from ..stages.lz77 import lz_encode
+from .options import LZ_MODE_STORE, Options, validate_match_finder
 
 from ..device import resolve
-from ..kernels.encode_stages import END_TOKEN, ceil_div, encode_block_core
+from ..kernels.encode_stages import (
+    END_TOKEN,
+    Marks,
+    ceil_div,
+    encode_back,
+    encode_front,
+)
 from ..kernels.filters_search import pick_f1_configs, pick_f2_configs
-
-
-def _add(times, key, seconds):
-    if times is not None:
-        times[key] = times.get(key, 0.0) + seconds
 
 
 def filter_configs(s1: torch.Tensor, filters: int):
@@ -65,55 +68,65 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     """(crc, payload bytes, lpx_spans_used): the device mirror of
     pipeline.compress_block_ex.  lpx_spans_used is opt.lpx_spans, or 0
     where opt.lpx_auto's gate dropped the Lpx stage; the block's span word
-    must carry it.  With a dict `times`, per-stage wall seconds are added
-    to it: host_crc, h2d, search (the -f1/-f2 config search), the
-    synchronized device stages of encode_block_core, then d2h and
-    splice."""
-    if opt.match_finder != LZ_MODE_STORE:
-        raise NotImplementedError(
-            "device encode runs -m3 (store) only: the host-LZ route for "
-            "-m0/-m1/-m2 is not ported yet")
+    must carry it.
+
+    The LZ stages follow compress_block_ex's rule: under -m3 (store) both
+    are the store framing, one end token ahead of the bytes, written on the
+    device.  -m0/-m1/-m2 run the LZ match finders on the host around the
+    device front and back, as jampack_tpu's encode_block_device_lz does:
+    the dedupe pre-pass, the h2d of its stream, the filter search and
+    encode_front, one d2h of the stage-2 stream, the configured finder on
+    it, the h2d of its stream and encode_back.
+
+    With a dict `times`, per-stage wall seconds are added to it: host_crc,
+    (-m0/-m1/-m2: lz_pre, the host dedupe pre-pass), h2d, search (the
+    -f1/-f2 config search), the synchronized device stages of encode_front,
+    (-m0/-m1/-m2: d2h_s2, lz, the host stage-4 finder, and h2d_s3), those
+    of encode_back, then d2h and splice."""
     if opt.filters not in (0, 1, 2):
         raise NotImplementedError(
             "device encode runs -f0/-f1/-f2: the -f3 device filter search "
             "is not ported yet")
+    mode = validate_match_finder(int(opt.match_finder))
     dev = resolve(device)
     data = np.ascontiguousarray(np.asarray(data, dtype=np.uint8))
-    n = int(data.size)
     units = int(opt.anchor_units)
     chunk = min(max(int(opt.ans_chunk), 1), ANS_CHUNK_SIZE)
     lanes = int(opt.rans_lanes)
-    t0 = time.perf_counter()
+    mark = Marks(dev, times)
     crc = integrity_check(data)
-    t1 = time.perf_counter()
-    x = torch.from_numpy(data.copy()).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    _add(times, "host_crc", t1 - t0)
-    t2 = time.perf_counter()
-    _add(times, "h2d", t2 - t1)
-    fc = filter_configs(torch.cat([torch.as_tensor(END_TOKEN, device=dev), x]),
-                        opt.filters)
+    mark("host_crc")
+    store = mode == LZ_MODE_STORE
+    if store:
+        tok = torch.as_tensor(END_TOKEN, device=dev)
+        s1 = torch.cat([tok, _h2d(data, dev)])
+    else:
+        s1 = lz_encode(data, 0)
+        mark("lz_pre")
+        s1 = _h2d(s1, dev)
+    mark("h2d")
+    fc = filter_configs(s1, opt.filters)
     if fc is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        _add(times, "search", time.perf_counter() - t2)
-    spans = int(opt.lpx_spans)
-    bufs, ptrs, oks, freqs, rlens, kept = encode_block_core(
-        x, fc, units=units, chunk=chunk, lanes=lanes, lpx_spans=spans,
-        lpx_auto=bool(opt.lpx_auto), times=times)
-    payload = _fetch_and_splice(bufs, ptrs, oks, freqs, rlens,
-                                stage4_len(n, units), chunk, lanes, times)
-    return crc, payload, spans if kept else 0
+        mark("search")
+    s2, kept = encode_front(s1, fc, lpx_spans=int(opt.lpx_spans),
+                            lpx_auto=bool(opt.lpx_auto), mark=mark)
+    if store:
+        s3 = torch.cat([tok, s2])
+    else:
+        s2 = s2.cpu().numpy()
+        mark("d2h_s2")
+        s3 = lz_encode(s2, mode)
+        mark("lz")
+        s3 = _h2d(s3, dev)
+        mark("h2d_s3")
+    chain = encode_back(s3, units=units, chunk=chunk, lanes=lanes, mark=mark)
+    payload = _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk, lanes,
+                                mark)
+    return crc, payload, int(opt.lpx_spans) if kept else 0
 
 
-def stage4_len(n: int, units: int) -> int:
-    """Entropy-stage input length for a block of n raw bytes in the store
-    configuration (the same arithmetic as the core; neither a filter config
-    nor the Lpx stage changes lengths)."""
-    n1 = n + END_TOKEN.size
-    n2 = n1 + 2 * ceil_div(n1, FILTER_BLOCK_SIZE)
-    return n2 + END_TOKEN.size + 4 * units
+def _h2d(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.uint8)).to(dev)
 
 
 def _compact_chains(bufs: torch.Tensor, ptrs: torch.Tensor) -> torch.Tensor:
@@ -133,11 +146,11 @@ def _compact_chains(bufs: torch.Tensor, ptrs: torch.Tensor) -> torch.Tensor:
 
 
 def _fetch_and_splice(bufs, ptrs, oks, freqs, rlens, n4: int, chunk: int,
-                      lanes: int, times: dict = None) -> bytes:
+                      lanes: int, mark) -> bytes:
     """Compact the chain payloads on the device, fetch them with one
-    metadata transfer, and splice the block payload.  A chain whose model
-    pass hit a zero-frequency op raises ValueError."""
-    t0 = time.perf_counter()
+    metadata transfer, and splice the block payload (mark: the block's
+    Marks).  A chain whose model pass hit a zero-frequency op raises
+    ValueError."""
     NL, blen = bufs.shape
     C = freqs.shape[0]
     dense = _compact_chains(bufs, ptrs)
@@ -151,10 +164,9 @@ def _fetch_and_splice(bufs, ptrs, oks, freqs, rlens, n4: int, chunk: int,
             "model failure (CDF): chunk not encodable in ref-compat mode")
     lens = blen - ptrs.astype(np.int64)
     dense = dense[:int(lens.sum())].cpu().numpy()
-    t1 = time.perf_counter()
+    mark("d2h")
     payload = splice_dense(dense, lens, freqs, rlens, n4, chunk, lanes)
-    _add(times, "d2h", t1 - t0)
-    _add(times, "splice", time.perf_counter() - t1)
+    mark("splice")
     return payload
 
 

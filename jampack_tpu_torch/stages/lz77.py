@@ -1,6 +1,7 @@
-"""The LZ77 token writer (lz77.cpp:53-102 format): the port's copy of
-jampack_tpu/stages/lz77.py::write_token.  The store framing writes one end
-token (offset 0) ahead of the raw bytes.
+"""The LZ77 stage of the encode: the token writer (lz77.cpp:53-102
+format), the port's copy of jampack_tpu/stages/lz77.py::write_token, and
+the stage's finder dispatch.  The store framing writes one end token
+(offset 0) ahead of the raw bytes.
 
     byte  MMMMM_LLL   match-MIN_MATCH (5 bits, 31 = extend) | literal (3 bits, 7 = extend)
     leb128 offset
@@ -8,8 +9,11 @@ token (offset 0) ahead of the raw bytes.
     [leb128 literal-7           if L field == 7]
 """
 
+import numpy as np
+
 from ..format.constants import LZ_MIN_MATCH
 from ..format.varint import encode_leb128
+from ..runtime.options import LZ_MODE_STORE
 
 
 def write_token(match: int, literal: int, offset: int) -> bytes:
@@ -22,3 +26,19 @@ def write_token(match: int, literal: int, offset: int) -> bytes:
     if min(literal, 7) == 7:
         out += encode_leb128(literal - 7)
     return bytes(out)
+
+
+def lz_encode(data, mode: int) -> np.ndarray:
+    """The LZ77 stage of `data` by finder `mode`, as the JAX package's
+    engines dispatch it (jampack_tpu/runtime/engines.py::NativeEngine.
+    lz_encode): 3 (store) the end token ahead of the raw bytes, 0 the
+    dedupe, 1 the hash-chain and 2 the suffix-array finder of the native
+    copy (jampack_tpu_torch/native)."""
+    data = np.asarray(data, dtype=np.uint8)
+    if mode == LZ_MODE_STORE:
+        head = np.frombuffer(write_token(LZ_MIN_MATCH, LZ_MIN_MATCH, 0),
+                             np.uint8)
+        return np.concatenate([head, data])
+    from .. import native
+
+    return native.lz_encode(data, mode)

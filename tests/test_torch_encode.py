@@ -311,7 +311,8 @@ def test_archive_round_trip(total):
     assert back.getvalue() == data
 
 
-@pytest.mark.parametrize("kw", [{"filters": 3}, {"match_finder": 0}])
+@pytest.mark.parametrize("kw", [{"filters": 3},
+                                {"match_finder": 0, "filters": 3}])
 def test_unported_configurations_raise(kw):
     opt = _opt(4, 2048, 24)
     for k, v in kw.items():
@@ -372,7 +373,8 @@ def test_cli_fused_encode_matches_host(tmp_path):
 
 
 @pytest.mark.parametrize("flags,word", [
-    (["-m0", "-f0", "-S0"], "host-LZ"), (["-m3", "-f3", "-S0"], "filter search")])
+    (["-m0", "-f3", "-S0"], "filter search"),
+    (["-m3", "-f3", "-S0"], "filter search")])
 def test_cli_fused_refuses_unported(tmp_path, flags, word):
     src = tmp_path / "in.bin"
     src.write_bytes(b"x" * 100)

@@ -821,6 +821,29 @@ def test_lpx_block_encode_on_cuda_matches_cpu(cuda, spans, auto):
     assert np.array_equal(back, data)
 
 
+@pytest.mark.parametrize("stream", ["jam", "jt3"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_host_lz_block_encode_on_cuda_matches_native(cuda, mode, stream):
+    """The host-LZ route (-m0/-m1/-m2) on the card: byte-identical to the
+    native engine, K4, K5, K6 and K10 launched once, decoded back."""
+    data = np.concatenate([log_records(60000), span_bytes("random", 3000, 3),
+                           log_records(20000)])
+    kw = ({"lpx_spans": 4} if stream == "jam" else
+          {"lpx_spans": 4096, "lpx_auto": True, "anchor_units": 960,
+           "rans_lanes": 4, "ans_chunk": 16 << 10})
+    opt = PortOptions(blocksize=1 << 20, match_finder=mode, filters=1, **kw)
+    kernels = (encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
+               rans_encode.REVERSE_KERNEL, lpx.KERNEL)
+    before = [k.launches for k in kernels]
+    got = encode_block_device_ex(data, opt, device=cuda)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1] * 4
+    assert got == compress_block_ex(data, opt, NativeEngine())
+    back = decode_block_device(got[1], got[0], opt.blocksize,
+                               opt.anchor_units, opt.rans_lanes, got[2],
+                               device=cuda)
+    assert np.array_equal(back, data)
+
+
 @pytest.mark.parametrize("spans", [4, 4096])
 def test_lpx_kernel_matches_native_on_8mib_of_log_records(cuda, spans):
     """K10 against the native engine's Lpx on the -f1 stage of 8 MiB of

@@ -41,7 +41,8 @@ def _modules():
 def test_every_module_imports_with_jax_and_jampack_tpu_blocked():
     mods = _modules()
     assert {"jampack_tpu_torch.kernels.filters_search",
-            "jampack_tpu_torch.kernels.block_scatter"} <= set(mods)
+            "jampack_tpu_torch.kernels.block_scatter",
+            "jampack_tpu_torch.native"} <= set(mods)
     code = ("import sys; sys.modules['jax'] = None\n"
             "sys.modules['jampack_tpu'] = None; import importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,11 +60,56 @@ def test_no_jampack_tpu_import_in_sources(path):
         os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
         if f.endswith(".py")]
     assert files
+    if path == "jampack_tpu_torch":
+        assert os.path.join(full, "native", "__init__.py") in files
     for f in files:
         for line in open(f):
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
                         and words[1].split(".")[0] == "jampack_tpu"), (f, line)
+
+
+@pytest.mark.parametrize("name", ["jn_lz.cpp", "jn_sais.cpp",
+                                  "jn_common.hpp"])
+def test_native_sources_equal_their_originals(name):
+    def read(*parts):
+        with open(os.path.join(REPO, *parts), "rb") as f:
+            return f.read()
+
+    assert read("jampack_tpu_torch", "native", "src", name) == read(
+        "jampack_tpu", "native", "src", name)
+
+
+def test_native_loader_opens_nothing_of_jampack_tpu():
+    """The port's LZ library builds from its own copy into build/ and
+    loads from there: no file it opens, compiles or loads lies under
+    jampack_tpu/."""
+    code = (
+        "import builtins, ctypes, subprocess, sys\n"
+        "sys.modules['jax'] = None; sys.modules['jampack_tpu'] = None\n"
+        "seen = []\n"
+        "real_open, real_cdll, real_run = builtins.open, ctypes.CDLL, subprocess.run\n"
+        "def spy_open(f, *a, **k):\n"
+        "    seen.append(str(f)); return real_open(f, *a, **k)\n"
+        "def spy_cdll(name, *a, **k):\n"
+        "    seen.append(str(name)); return real_cdll(name, *a, **k)\n"
+        "def spy_run(cmd, *a, **k):\n"
+        "    seen.extend(map(str, cmd)); return real_run(cmd, *a, **k)\n"
+        "builtins.open, ctypes.CDLL, subprocess.run = spy_open, spy_cdll, spy_run\n"
+        "import os\n"
+        "import numpy as np\n"
+        "from jampack_tpu_torch import native\n"
+        "if os.path.exists(native.LIB + '.sha256'):  # build it in this run\n"
+        "    os.remove(native.LIB + '.sha256')\n"
+        "out = native.lz_encode(np.frombuffer(b'abcabcabcabc' * 50, np.uint8), 1)\n"
+        "assert out.size > 0\n"
+        "assert any(s.endswith('libjamlz.so') for s in seen), seen\n"
+        "assert any(s.endswith('jn_lz.cpp') for s in seen), seen\n"
+        "bad = [s for s in seen if '/jampack_tpu/' in s or 'libjamtpu' in s]\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def _public(mod):
