@@ -10,13 +10,14 @@ paths: the fused block decode of the production JT3 stream (-c16 -L4 -u960
 -S4096 -Sa, the CLI's -f1), of JAM archives with the reference's default
 flags (-m0 -f1 -S4) and -m1, the fused block encode of the store
 configuration with the three filter modes (-m3 -f0/-f1/-f2 -c16 -L4 -u960
--S0) and with the Lpx stage (-S4096 -Sa; -S4, JAM), and the host-LZ encode
+-S0) and with the Lpx stage (-S4096 -Sa; -S4, JAM), the host-LZ encode
 route (-m0/-m1/-m2: the LZ match finders on the host around the device
-stages) with the reference's default flags, -m1, -m2 and the JT3 stream:
+stages) with the reference's default flags, -m1, -m2 and the JT3 stream,
+and the stage engines (--engine native, hybrid and gpu):
 
   1. facts     nvidia-smi name and power limit; NVIDIA, torch, CUDA versions
   2. build     nvcc builds the eleven kernels from csrc/, one process each;
-               g++ the host LZ library from native/src/
+               g++ the native engine's library from native/src/
   3. oracle    host encode of a 32 MiB, four-block textlike archive in the
                production stream; every block must frame lpx_spans = 0 (the
                Lpx gate drops the stage on text)
@@ -104,8 +105,28 @@ stages) with the reference's default flags, -m1, -m2 and the JT3 stream:
                cuda; block 0's stage split with the host LZ keys (lz_pre,
                lz) apart and the oracle's wall beside; K6 timed at the JAM
                shape (1 MiB chunks)
- 19. golden    all eight golden fixtures decode to golden_input.bin
- 20. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
+ 19. A9        8 MiB of 61-byte log records through `cli c -m1` (fused),
+               byte-identical to the oracle: its lz stage holds more tokens
+               than plan_shapes gives the JAX decode; `cli d` on cuda gives
+               it back, K11 twice a block; the token count and the slots
+               the port's decode takes (token_slots) are printed
+ 20. engines   the stage engines through `cli c|d --engine ...` on cuda
+               with -v (each run's per-stage seconds printed, launch counts
+               zeroed before each): native on phase 17's 8 MiB with no
+               flag, -m1, -f2, -S0 and the JT3 stream, byte-identical to
+               the oracle and read back; hybrid on the same 8 MiB, the
+               native engine's bytes, the BWT on the device route both
+               ways; gpu, the per-stage engine, with -b1 on the last 2 MiB,
+               -f1 (JAM) equal to the native engine's archive and -f3 -c16
+               -L4 -u960 equal to the native engine with GpuEngine("cpu")'s
+               -f3 stage, each read back through --engine gpu and native;
+               each GpuEngine device stage on one 8 MiB block (the filters
+               -f1/-f2/-f3, Lpx -S4 both ways, lz_decode of the -m1 stage,
+               the BWT both ways) against the native engine's (-f3 against
+               its CPU run), with its seconds and launches; `cli i` of a
+               JAM, a JTX and a JT3 archive against the JAX CLI's
+ 21. golden    all eight golden fixtures decode to golden_input.bin
+ 22. tool      K9, the block scatter of tools/pallas_dma_bench.py (no path
                of the codec runs it), exact against its plain version at
                S = 1024, 4096 and 16384 int32 elements a block, 8 Mi in
                all, timed beside index_copy_
@@ -134,7 +155,9 @@ one_token (with
 fetch_ms, the time of a status fetch alone), each with the path and
 launches of its own run); K4, K5, K6, K7 and K10 give their launches on
 each encode of phase 18, host_lz_launches, and K6 its time at the JAM
-shape, jam_ms and jam_cycles_per_step; then
+shape, jam_ms and jam_cycles_per_step; K11 the numbers of phase 19,
+token_dense; every kernel the stage engines launched in phase 20 its
+launches there by run, engine_launches; then
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -615,6 +638,250 @@ def host_lz_route(cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx,
     return out, k6
 
 
+def token_dense(cli, dd, device_stages, all_kernels, dec_kernels, lpx, tmp,
+                dev) -> dict:
+    """Phase 19 (ROADMAP A9): 8 MiB of 61-byte log records through `cli c
+    -m1` (the fused encode, with the host LZ finders) hold more LZ tokens
+    than plan_shapes gives the JAX decode; the archive must equal the
+    oracle's and decode on cuda through `cli d`, K11 twice a block.
+    Returns its numbers for K11's row."""
+    data = log_records(BLOCK)
+    src = os.path.join(tmp, "records-a9.bin")
+    host_arc = os.path.join(tmp, "records-a9.host.jam")
+    dev_arc = os.path.join(tmp, "records-a9.dev.jam")
+    back = os.path.join(tmp, "records-a9.out")
+    with open(src, "wb") as f:
+        f.write(data.tobytes())
+    host_s = oracle(src, host_arc, ["-m1"])
+    enc_s, _, dev_bytes = encode_cli(cli, all_kernels, src, dev_arc, ["-m1"])
+    check(dev_bytes == read(host_arc),
+          "the -m1 log-records archive differs from the oracle's")
+    nblk = count_blocks(dd.framing, dev_bytes)
+    dec_s, launches = decode_cli(cli, dec_kernels + [lpx.KERNEL], dev_arc,
+                                 back)
+    check(read(back) == data.tobytes(), "the token-dense archive did not decode")
+    check(launches[3] == 2 * nblk, f"lz_parse launched {launches[3]} times "
+          f"for {nblk} blocks")
+    with open(dev_arc, "rb") as f:
+        h, pay = dd.framing.read_block(f)
+    meta = dd.block_meta(pay, h.lanes)
+    shapes = dd.plan_shapes([meta], [len(pay)], h.blocksize, h.lanes)
+    slots = dd.token_slots(int(meta["chunk_olens"].sum()), shapes["out_cap"])
+    calls = []
+    with caught(device_stages, "lz_parse", calls):
+        dd.decode_block_device(pay, h.crc, h.blocksize, h.units, h.lanes,
+                               h.lpx_spans, dev)
+    check(calls[0][2] == slots, "the decode did not size its slots by "
+          "token_slots")
+    tokens = device_stages.lz_parse(*calls[0])[5]
+    check(tokens > shapes["max_tokens"],
+          f"{tokens} tokens: not more than plan_shapes' {shapes['max_tokens']}")
+    print(f"A9: {BLOCK} B of log records through `cli c -m1` in {enc_s:.3f} "
+          f"s, byte-identical to the oracle ({host_s:.1f} s); the -m1 lz "
+          f"stage of block 0 holds {tokens} tokens against plan_shapes' "
+          f"{shapes['max_tokens']} slots; the port's decode took "
+          f"{slots + 1} slots (token_slots); `cli d` {dec_s:.3f} s, exact; "
+          f"lz_parse {launches[3]} launches for {nblk} blocks "
+          f"({launches[3] // nblk} a block)")
+    return {"tokens": tokens, "plan_shapes_slots": shapes["max_tokens"],
+            "slots": slots + 1, "launches": launches[3], "blocks": nblk}
+
+
+def captured(fn, *args):
+    """(fn's return, what it printed), the print echoed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    text = buf.getvalue()
+    print(text, end="")
+    return ret, text
+
+
+def engine_cli(cli, kernels, mode, src, dst, flags, engine, dev="cuda"):
+    """`cli c|d` with a stage engine on `dev`, -v, every launch count
+    zeroed just before.  Returns (wall s, {kernel name: launches}, the -v
+    text)."""
+    zero(kernels)
+    t0 = time.perf_counter()
+    ret, text = captured(cli.run, ["cli", mode, src, dst, *flags, "-v",
+                                   "--engine", engine, "--device", str(dev)])
+    check(ret == 0, f"cli {mode} --engine {engine} {flags} failed")
+    wall = time.perf_counter() - t0
+    return wall, {k.name: k.launches for k in kernels}, text
+
+
+def engines_phase(cli, engines, pipeline, dd, kernels, tmp, msrc, mixed,
+                  dev) -> dict:
+    """Phase 20: the stage engines on the card.  The native engine through
+    `cli c|d --engine native` on phase 17's 8 MiB with no flag, -m1, -f2,
+    -S0 and the JT3 stream, each byte-identical to the oracle and read
+    back; the hybrid engine on the same 8 MiB, the native engine's bytes,
+    its BWT on the device route; the per-stage GPU engine with -b1 on a 2
+    MiB slice, -f1 (JAM) equal to the native engine's and -f3 -c16 -L4
+    -u960 equal to the native engine with GpuEngine("cpu")'s -f3 filter
+    stage (its torch ops on the CPU: -f3 is the one stage whose bytes are
+    this engine's own; the whole run on the CPU's plain walks would take
+    minutes), each read back through --engine gpu and --engine native;
+    each device stage of GpuEngine on one 8 MiB block against the native
+    engine's (-f3 against its CPU run), with its seconds and launches; and
+    `cli i` of each framing against `python -m jampack_tpu.cli i`.
+    Returns {kernel name: {run: launches}} on the engine path."""
+    import functools
+
+    engine_cli_ = functools.partial(engine_cli, dev=dev)
+    back = os.path.join(tmp, "engine.out")
+    want = mixed.tobytes()
+    launches = {}
+    jt3 = ["-c16", "-L4", "-u960", f"-S{SA_SPANS}", "-Sa"]
+    arcs = {}
+    for label, flags in (("no flag", []), ("-m1", ["-m1"]), ("-f2", ["-f2"]),
+                         ("-S0", ["-S0"]), ("JT3", jt3)):
+        host_arc = os.path.join(tmp, f"engine-host{len(arcs)}.arc")
+        nat_arc = os.path.join(tmp, f"engine-native{len(arcs)}.arc")
+        host_s = oracle(msrc, host_arc, flags)
+        enc_s, _, _ = engine_cli_(cli, kernels, "c", msrc, nat_arc, flags,
+                                 "native")
+        check(read(nat_arc) == read(host_arc),
+              f"--engine native {label}: the archive differs from the oracle's")
+        dec_s, _, _ = engine_cli_(cli, kernels, "d", nat_arc, back, [],
+                                 "native")
+        check(read(back) == want, f"--engine native {label} did not decode")
+        arcs[label] = nat_arc
+        print(f"engine native {label}: `cli c` {enc_s:.3f} s, byte-identical "
+              f"to the oracle ({host_s:.3f} s); `cli d` {dec_s:.3f} s, exact")
+
+    hyb_arc = os.path.join(tmp, "engine-hybrid.arc")
+    enc_s, _, enc_text = engine_cli_(cli, kernels, "c", msrc, hyb_arc, [],
+                                    "hybrid")
+    check(read(hyb_arc) == read(arcs["no flag"]),
+          "--engine hybrid: the archive differs from the native engine's")
+    dec_s, got, dec_text = engine_cli_(cli, kernels, "d", hyb_arc, back, [],
+                                      "hybrid")
+    check(read(back) == want, "--engine hybrid did not decode")
+    nblk = count_blocks(dd.framing, read(hyb_arc))
+    for text in (enc_text, dec_text):
+        check(f"bwt routes: device {nblk}, host 0" in text,
+              "the hybrid BWT did not take the device route")
+    # K3 chases every block but the trailing empty one (a rehearsal on the
+    # CPU runs the plain versions, which launch nothing)
+    check(got["ibwt_chase"] == nblk - 1 or str(dev) == "cpu",
+          f"K3 ran {got['ibwt_chase']} times on the hybrid decode of "
+          f"{nblk} blocks")
+    launches["ibwt_chase"] = {"hybrid decode": got["ibwt_chase"]}
+    print(f"engine hybrid: `cli c` {enc_s:.3f} s, the native engine's "
+          f"bytes; `cli d` {dec_s:.3f} s, exact; the BWT on the device route "
+          f"in {nblk} blocks each way")
+
+    piece = mixed[-(2 << 20):]
+    psrc = os.path.join(tmp, "engine-slice.bin")
+    with open(psrc, "wb") as f:
+        f.write(piece.tobytes())
+    t0 = time.perf_counter()
+    for label, flags in (("-f1", ["-b1", "-f1"]),
+                         ("-f3", ["-b1", "-f3", "-c16", "-L4", "-u960"])):
+        gpu_arc = os.path.join(tmp, f"engine-gpu{label}.arc")
+        enc_s, got, _ = engine_cli_(cli, kernels, "c", psrc, gpu_arc, flags,
+                                   "gpu")
+        for name, n in got.items():
+            if n:
+                launches.setdefault(name, {})[f"gpu encode {label}"] = n
+        if label == "-f1":
+            ref_arc = os.path.join(tmp, "engine-native-slice.arc")
+            engine_cli_(cli, kernels, "c", psrc, ref_arc, flags, "native")
+            ref = read(ref_arc)
+            what = "the native engine's"
+        else:
+            import io
+
+            cpu_gpu = engines.GpuEngine("cpu")
+
+            class CpuF3(engines.NativeEngine):
+                def filters_encode(self, data, mode):
+                    return cpu_gpu.filters_encode(data, mode)
+
+            out = io.BytesIO()
+            opt = cli._parse(["cli", "c", psrc, gpu_arc, *flags])[3]
+            pipeline.compress_stream(io.BytesIO(piece.tobytes()), out, opt,
+                                     CpuF3())
+            ref = out.getvalue()
+            arcs["-f3 (JTX)"] = gpu_arc
+            what = "the native engine's with GpuEngine('cpu')'s -f3 stage"
+        check(read(gpu_arc) == ref,
+              f"--engine gpu {label}: the archive differs from {what}")
+        for engine in ("gpu", "native"):
+            dec_s, got, _ = engine_cli_(cli, kernels, "d", gpu_arc, back, [],
+                                       engine)
+            check(read(back) == piece.tobytes(),
+                  f"--engine gpu {label} archive: --engine {engine} did not "
+                  "decode it")
+            if engine == "gpu":
+                for name, n in got.items():
+                    if n:
+                        launches.setdefault(name, {})[
+                            f"gpu decode {label}"] = n
+        print(f"engine gpu {label}: `cli c` of {piece.size} B ({flags}) "
+              f"{enc_s:.3f} s, equal to {what}; read back through --engine "
+              f"gpu ({dec_s:.3f} s for native) and native, exact")
+    print(f"engine gpu: the sub-phase took {time.perf_counter() - t0:.1f} s")
+
+    nat, gpu = engines.NativeEngine(), engines.GpuEngine(dev)
+    block = mixed[:BLOCK]
+    s1 = nat.lz_encode(block, 0)
+    s2 = nat.filters_encode(s1, 1)
+    s3 = nat.lpx_encode(s2, 4)
+    s4 = nat.lz_encode(s3, 1)
+    cap = int(BLOCK * 1.05) + 1024
+    fwd = nat.bwt_forward(s4, 120)
+    cases = [
+        ("filters_encode 1", lambda: gpu.filters_encode(s1, 1),
+         lambda: nat.filters_encode(s1, 1)),
+        ("filters_encode 2", lambda: gpu.filters_encode(s1, 2),
+         lambda: nat.filters_encode(s1, 2)),
+        ("filters_encode 3", lambda: gpu.filters_encode(s1, 3),
+         lambda: engines.GpuEngine("cpu").filters_encode(s1, 3)),
+        ("lpx_encode -S4", lambda: gpu.lpx_encode(s2, 4),
+         lambda: nat.lpx_encode(s2, 4)),
+        ("lpx_decode -S4", lambda: gpu.lpx_decode(s3, 4),
+         lambda: nat.lpx_decode(s3, 4)),
+        ("lz_decode -m1", lambda: gpu.lz_decode(s4, cap),
+         lambda: nat.lz_decode(s4, cap)),
+        ("bwt_forward", lambda: gpu.bwt_forward(s4, 120),
+         lambda: nat.bwt_forward(s4, 120)),
+        ("bwt_inverse", lambda: gpu.bwt_inverse(fwd, 120),
+         lambda: nat.bwt_inverse(fwd, 120))]
+    import numpy as np
+
+    for label, run, ref in cases:
+        run()  # the first call of a shape warms up
+        zero(kernels)
+        t0 = time.perf_counter()
+        got = run()
+        sec = time.perf_counter() - t0
+        ran = {k.name: k.launches for k in kernels if k.launches}
+        t0 = time.perf_counter()
+        check(np.array_equal(got, np.asarray(ref(), np.uint8)),
+              f"GpuEngine.{label} differs from its reference")
+        ref_s = time.perf_counter() - t0
+        for name, n in ran.items():
+            launches.setdefault(name, {})[f"stage {label}"] = n
+        print(f"engine gpu stage {label}: {sec:.4f} s on the card "
+              f"({', '.join(f'{k}={v}' for k, v in ran.items()) or 'no kernel'}"
+              f"), equal to its reference ({ref_s:.3f} s)")
+
+    for label, arc in (("JAM", arcs["no flag"]), ("JTX", arcs["-f3 (JTX)"]),
+                       ("JT3", arcs["JT3"])):
+        _, mine = captured(cli.run, ["cli", "i", arc])
+        res = subprocess.run([sys.executable, "-m", "jampack_tpu.cli", "i",
+                              arc], cwd=HERE, capture_output=True, text=True,
+                             timeout=120)
+        check(res.returncode == 0 and res.stdout == mine,
+              f"`cli i` of the {label} archive differs from the JAX CLI's")
+        print(f"cli i {label}: equal to `python -m jampack_tpu.cli i`")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -643,6 +910,7 @@ def main() -> int:
     )
     from jampack_tpu_torch.runtime import device_decode as dd
     from jampack_tpu_torch.runtime import device_encode as de
+    from jampack_tpu_torch.runtime import engines, pipeline
     from jampack_tpu_torch.runtime.options import Options
 
     dev = torch.device("cuda:0")
@@ -676,8 +944,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s,"
           f" built={info['built']}); " + " | ".join(ptxas))
     lz_info = native.build()
-    print(f"build: the host LZ library (g++) {lz_info['seconds']:.1f} s, "
-          f"built={lz_info['built']}")
+    print(f"build: the native library (g++, one process a source) "
+          f"{lz_info['seconds']:.1f} s, built={lz_info['built']}")
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "textlike32.bin")
@@ -1426,7 +1694,18 @@ def main() -> int:
             rows[name]["host_lz_launches"] = launches
         rows["rank_encode"].update(k6_jam)
 
-    # ---- 19. golden fixtures: all eight archives
+        # ---- 19. A9: a token-dense -m1 archive, written and read by the
+        # port
+        rows["lz_parse"]["token_dense"] = token_dense(
+            cli, dd, device_stages, all_kernels, dec_kernels, lpx, tmp, dev)
+
+        # ---- 20. the stage engines: native, hybrid, the per-stage gpu
+        engine_launches = engines_phase(
+            cli, engines, pipeline, dd, all_kernels, tmp, msrc, mixed, dev)
+        for name, runs in engine_launches.items():
+            rows[name]["engine_launches"] = runs
+
+    # ---- 21. golden fixtures: all eight archives
     import io
 
     fixtures = os.path.join(HERE, "tests", "fixtures")
@@ -1441,7 +1720,7 @@ def main() -> int:
         check(out.getvalue() == gold, f"golden {name} decoded wrongly")
     print(f"golden: {', '.join(names)} -> {len(gold)} bytes each, exact")
 
-    # ---- 20. K9: the block scatter of the DMA measuring tool
+    # ---- 22. K9: the block scatter of the DMA measuring tool
     rng = np.random.default_rng(0)
     k9 = {}
     for S in (1024, 4096, 16384):

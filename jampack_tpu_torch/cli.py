@@ -1,25 +1,44 @@
 """Command line of the port.
 
-    python -m jampack_tpu_torch.cli d archive output [--device cuda|cpu]
-    python -m jampack_tpu_torch.cli c input archive [-m0..-m3 -f0|-f1|-f2 -S# -Sa -b# -u# -c# -L#] [--engine fused] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli <c|d> input output [-b# -m# -f# -t# -T -v] [-u# -c# -L# -S# -Sa] [--engine E] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli i archive          (dump block headers)
 
-d decodes on the GPU, every archive the JAX package's engines write.  c
-encodes on the GPU (--engine fused, the only engine and the default),
-every block of any length: the LZ match finders -m0/-m1/-m2 on the host
-around the device stages, or -m3 (store) all on the device; -f0/-f1/-f2
-(the filter search on the device); any Lpx span count -S# (0 skips the
-stage), with -Sa the per-block gate that frames spans 0 where the stage
-gains too little.  With no flag it writes the reference's default JAM
-archive (-m0 -f1 -S4).  It refuses -f3 with a message naming what is not
-ported yet; `python -m jampack_tpu.cli c` encodes it on the host.  The
-device defaults to cuda; there is no fallback to the CPU: --device cpu
-runs the plain PyTorch versions of the kernels and exists for tests.  Flags and
-messages are jampack_tpu.cli's (_parse is a copy).
+Flags and messages are jampack_tpu.cli's (_parse is a copy): -b block size
+in MB, -m match finder (0 dedupe, 1 hash chain, 2 suffix array, 3 store),
+-f filters (0 off, 1 heuristic, 2 brute force, 3 the per-stage device
+search), -t threads, -T one block at a time, -v a per-stage report; the
+JTX/JT3 stream parameters -u# anchor units, -c# ANS chunk KB, -L# rANS
+lanes, -S# Lpx spans (0 skips the stage), -Sa the per-block Lpx gate.
+
+--engine (--engine=E or --engine E):
+  fused   the default: the whole block chain on the GPU, one block at a
+          time (runtime/device_decode.py, device_encode.py).  d reads every
+          archive; c takes -m0..-m3 with -f0/-f1/-f2 (the LZ match finders
+          of -m0/-m1/-m2 on the host) and refuses -f3, which runs on
+          --engine gpu.  With no flag c writes the reference's default JAM
+          archive (-m0 -f1 -S4).
+  gpu     the per-stage engine on the GPU (the JAX package's tpu engine):
+          each stage one call through the port's kernels, -f3 included.
+  hybrid  the native host stages and the BWT on the GPU where the block
+          passes the reference's 80%-of-VRAM gate (its -g mode).
+  native  the native C++ host engine.
+  numpy   the Python/numpy spec engine (slow; for checks).
+The stage engines (gpu, hybrid, native, numpy) run blocks on -t threads
+(default: every core, clamped by host memory) with the reference's
+read-ahead window.  --engine tpu is refused: its counterpart here is gpu.
+--device picks the card (cuda, the default) for fused, gpu and hybrid;
+there is no fallback to the CPU: --device cpu runs the plain PyTorch
+versions of the kernels and exists for tests.
 """
 
 import sys
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
+from .format import framing
 from .format.constants import DEFAULT_BLOCKSIZE, MAX_BLOCKSIZE, MIN_BLOCKSIZE
 from .runtime.device_decode import decompress_stream_device
 from .runtime.device_encode import compress_stream_device
@@ -29,8 +48,9 @@ from .runtime.options import (
     validate_match_finder,
     validate_rans_lanes,
 )
+from .runtime.pipeline import compress_block_ex, decompress_block
 
-HOST_ENCODE = "python -m jampack_tpu.cli c"
+ENGINES = ("fused", "gpu", "hybrid", "native", "numpy")
 
 
 def _split_flags(argv):
@@ -113,27 +133,105 @@ def _parse(argv):
     return mode, inp, outp, opt
 
 
-def _fused_unsupported(opt) -> str:
-    """Why the device encode cannot encode with `opt`, or '' when it can."""
-    if opt.filters not in (0, 1, 2):
-        return (f"-f{opt.filters}: the -f3 device filter search is not "
-                f"ported yet (use -f0/-f1/-f2, or {HOST_ENCODE})")
-    return ""
+# plan_workers, _Progress and info are copies of jampack_tpu.cli's, held
+# equal line for line by tests/test_torch_standalone.py
+
+def plan_workers(opt) -> int:
+    """Memory/core-aware block-parallel worker count.
+
+    The reference clamps instance count against the host (jampack.cpp:186-192)
+    and documents encode memory as 6N*K for K instances on N-byte blocks
+    (main.cpp:3-4).  Default K = core count; K is clamped so 6N*K (plus the
+    2-deep read-ahead window's raw blocks, ~2N*K) fits in available memory.
+    """
+    from .runtime.sysinfo import available_memory, core_count
+
+    if not opt.multiblock:
+        return 1
+    workers = opt.threads if opt.threads > 0 else core_count()
+    per_worker = 8 * opt.blocksize  # 6N working set + 2N window buffers
+    mem_cap = max(int(available_memory() // per_worker), 1)
+    return max(min(workers, mem_cap), 1)
 
 
-def run(argv) -> int:
-    argv, device, engine = _split_flags(list(argv))
-    if len(argv) < 4:
-        print(__doc__)
-        return 0
-    mode, inp, outp, opt = _parse(argv)
-    if mode not in ("c", "d"):
-        raise SystemExit("Invalid option!")
-    if engine != "fused":
-        raise SystemExit(f"--engine {engine}: the port's only engine is "
-                         f"fused (the host engines: {HOST_ENCODE})")
-    if mode == "c" and (why := _fused_unsupported(opt)):
-        raise SystemExit(f"--engine fused: {why}")
+class _Progress:
+    """Live per-block progress line (jampack.cpp:226-231,273-278 analog):
+    MB processed, ratio, MB/s, carriage-return overwritten on stderr."""
+
+    def __init__(self, label: str, enabled: bool = True):
+        self.label = label
+        self.enabled = enabled and sys.stderr.isatty()
+        self.t0 = time.time()
+        self.shown = False
+
+    def update(self, raw: int, comp: int) -> None:
+        if not self.enabled:
+            return
+        dt = time.time() - self.t0
+        rate = (raw / 1e6) / dt if dt > 0 else 0.0
+        ratio = (comp / raw * 100) if raw else 0.0
+        print(f"\r{self.label}: {raw / 1e6:.1f} MB ({ratio:.2f}%) "
+              f"@ {rate:.2f} MB/s", end="", file=sys.stderr, flush=True)
+        self.shown = True
+
+    def done(self) -> None:
+        if self.shown:
+            print(file=sys.stderr)
+
+
+def _make_engine(name: str, threads: int, device):
+    """A stage engine by its --engine name."""
+    from .runtime import engines
+
+    if name == "numpy":
+        from .runtime.pipeline import Engine
+
+        return Engine()
+    if name == "gpu":
+        return engines.GpuEngine(device)
+    if name == "hybrid":
+        return engines.HybridEngine(threads=threads, device=device)
+    return engines.NativeEngine(threads=threads)
+
+
+def info(path: str) -> int:
+    """Dump block headers (jampack.cpp:174-180 DisplayHeaderContents
+    counterpart): per block magic kind, crc, compressed/block sizes, and
+    JTX stream parameters."""
+    total_c = 0
+    n = 0
+    with open(path, "rb") as f:
+        while True:
+            rec = framing.read_block(f)
+            if rec is None:
+                break
+            h, payload = rec
+            native = framing.is_native(h.units, h.lanes, h.lpx_spans)
+            v3 = h.lpx_spans != framing.DEFAULT_LPX_SPANS
+            kind = ("JT3" if v3 else "JTX") if native else "JAM"
+            extra = (f" units={h.units} lanes={h.lanes} spans={h.lpx_spans}"
+                     if native else "")
+            print(f"block {n}: {kind} crc=0x{h.crc:08x} csize={h.csize} "
+                  f"blocksize={h.blocksize}{extra}")
+            total_c += h.csize + framing.header_size(h.units, h.lanes,
+                                                     h.lpx_spans)
+            n += 1
+    print(f"{n} blocks, {total_c} compressed bytes")
+    return 0
+
+
+def _summary(raw: int, comp: int, dt: float, label: str) -> None:
+    ratio = (comp / raw * 100) if raw else 0.0
+    rate = (raw / 1e6) / dt if dt > 0 else 0.0
+    print(f"{raw / 1e6:.2f} MB <=> {comp / 1e6:.2f} MB ({ratio:.2f}%) "
+          f"@ {rate:.2f} MB/s in {dt:.2f}s [{label}]")
+
+
+def _run_fused(mode, inp, outp, opt, device) -> None:
+    if mode == "c" and opt.filters not in (0, 1, 2):
+        raise SystemExit(f"--engine fused: -f{opt.filters}: the fused "
+                         f"encode runs -f0/-f1/-f2; the -f3 device filter "
+                         f"search runs on --engine gpu")
     start = time.time()
     with open(inp, "rb") as fin, open(outp, "wb") as fout:
         if mode == "c":
@@ -142,11 +240,116 @@ def run(argv) -> int:
         else:
             comp, raw = decompress_stream_device(fin, fout, device)
             label = f"device decode: {device}"
-    dt = time.time() - start
-    ratio = (comp / raw * 100) if raw else 0.0
-    rate = (raw / 1e6) / dt if dt > 0 else 0.0
-    print(f"{raw / 1e6:.2f} MB <=> {comp / 1e6:.2f} MB ({ratio:.2f}%) "
-          f"@ {rate:.2f} MB/s in {dt:.2f}s [{label}]")
+    _summary(raw, comp, time.time() - start, label)
+
+
+def _encode_blocks(fin, fout, opt, engine, workers, progress):
+    """The stage engines' encode: blocks on `workers` threads behind a
+    read-ahead window of 2 x workers (jampack_tpu.cli.run's loop)."""
+    raw = comp = 0
+
+    def encode_one(blob):
+        data = np.frombuffer(blob, dtype=np.uint8)
+        return compress_block_ex(data, opt, engine)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        window = deque()
+        # feof semantics (jampack.cpp:205-214): an input of exactly
+        # K*blocksize bytes (incl. K=0) gets one trailing EMPTY
+        # block — archive bytes are the contract
+        pending_empty = True
+        eof = False
+        while True:
+            while not eof and len(window) < workers * 2:
+                blob = fin.read(opt.blocksize)
+                if not blob:
+                    eof = True
+                    if pending_empty:
+                        window.append(pool.submit(encode_one, b""))
+                    break
+                raw += len(blob)
+                pending_empty = len(blob) == opt.blocksize
+                window.append(pool.submit(encode_one, blob))
+            if not window:
+                break
+            crc, payload, spans = window.popleft().result()
+            framing.write_block(fout, crc, payload, opt.blocksize,
+                                opt.anchor_units, opt.rans_lanes, spans)
+            comp += len(payload) + framing.HEADER_SIZE
+            progress.update(raw, comp)
+    return raw, comp
+
+
+def _decode_blocks(fin, fout, engine, workers, progress):
+    raw = comp = 0
+
+    def decode_one(args):
+        header, payload = args
+        return decompress_block(payload, header.crc, engine,
+                                header.blocksize, header.units,
+                                header.lanes, header.lpx_spans)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        window = deque()
+        while True:
+            while len(window) < workers * 2:
+                rec = framing.read_block(fin)
+                if rec is None:
+                    break
+                comp += rec[0].csize + framing.HEADER_SIZE
+                window.append(pool.submit(decode_one, rec))
+            if not window:
+                break
+            data = window.popleft().result()
+            fout.write(data.tobytes())
+            raw += data.size
+            progress.update(raw, comp)
+    return raw, comp
+
+
+def run(argv) -> int:
+    argv, device, engine_name = _split_flags(list(argv))
+    if len(argv) >= 3 and argv[1] == "i":
+        return info(argv[2])
+    if len(argv) < 4:
+        print(__doc__)
+        return 0
+    mode, inp, outp, opt = _parse(argv)
+    if mode not in ("c", "d"):
+        raise SystemExit("Invalid option!")
+    if engine_name == "tpu":
+        raise SystemExit("--engine tpu: the port runs on the GPU; its "
+                         "per-stage device engine is --engine gpu")
+    if engine_name not in ENGINES:
+        raise SystemExit(f"--engine {engine_name}: the engines are "
+                         f"{', '.join(ENGINES)}")
+    if engine_name == "fused":
+        _run_fused(mode, inp, outp, opt, device)
+        return 0
+    engine = _make_engine(engine_name, opt.threads, device)
+    verbose = any(a in ("-v", "--verbose") for a in argv[4:])
+    if verbose:
+        from .runtime.metrics import InstrumentedEngine
+
+        engine = InstrumentedEngine(engine)
+    start = time.time()
+    workers = plan_workers(opt)
+    progress = _Progress("compressing" if mode == "c" else "decompressing")
+    with open(inp, "rb") as fin, open(outp, "wb") as fout:
+        if mode == "c":
+            raw, comp = _encode_blocks(fin, fout, opt, engine, workers,
+                                       progress)
+        else:
+            raw, comp = _decode_blocks(fin, fout, engine, workers, progress)
+    progress.done()
+    _summary(raw, comp, time.time() - start, engine.name)
+    if verbose:
+        print(f"per-stage (aggregated across {workers} threads):")
+        print(engine.metrics.report())
+        routes = getattr(engine, "routes", None)
+        if routes is not None:
+            print("bwt routes: " + ", ".join(
+                f"{k} {routes[k]}" for k in ("device", "host")))
     return 0
 
 

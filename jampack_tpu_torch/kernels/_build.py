@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -134,9 +135,19 @@ def build() -> dict:
     return {"built": True, "seconds": seconds, "log": log}
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built first when needed (once per process)."""
+    """The kernel library, built first when needed (once per process; the
+    first callers on several threads wait for one build)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(LIB)
     for name, argtypes in _SIGNATURES.items():
@@ -150,7 +161,8 @@ def load() -> ctypes.CDLL:
 
 class Kernel:
     """One hand-written kernel: its C entry point, where it came from, and a
-    count of its launches (bumped only where the kernel is enqueued)."""
+    count of its launches (bumped only where the kernel is enqueued, under
+    a lock, so that launches from several host threads all count)."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
@@ -165,7 +177,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
                                f"({lib.jt_error_string(err).decode()})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

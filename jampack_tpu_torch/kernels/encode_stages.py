@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
-from ..stages.lpx import gain_gate
+from ..runtime.pipeline import gain_gate
 from ..stages.lz77 import write_token
 
 from ._build import Kernel, load, ptr, stream_of

@@ -68,9 +68,9 @@ def block_meta(payload: bytes, lanes: int):
 def plan_shapes(metas, payload_lens, blocksize: int, lanes: int):
     """The JAX chain's capacities for a batch of blocks (pow2-bucketed
     there to bound its jit variants).  The port sizes its buffers by
-    actual lengths and reads only out_cap and max_tokens, the bounds of
-    the LZ and filter stages (the reference's 1.05x stage buffers,
-    MB-rounded)."""
+    actual lengths and reads only out_cap, the bound of the LZ and filter
+    stages (the reference's 1.05x stage buffers, MB-rounded); its LZ token
+    slots come from token_slots, not from max_tokens."""
     cmax = _pow2(max((m["chunk_olens"].size for m in metas), default=1), 1)
     lmax = cmax * max(lanes, 1)
     rmax = _pow2(max((int(m["rlens"].max()) if m["rlens"].size else 1)
@@ -85,6 +85,23 @@ def plan_shapes(metas, payload_lens, blocksize: int, lanes: int):
     max_tokens = max(out_cap // 256, 4096)
     return dict(cmax=cmax, lmax=lmax, rmax=rmax, ocap=ocap, pcap=pcap,
                 out_cap=out_cap, max_tokens=max_tokens)
+
+
+def token_slots(total: int, out_cap: int) -> int:
+    """max_tokens for both LZ parses of a block whose entropy stage holds
+    `total` bytes.  plan_shapes' max(out_cap // 256, 4096) counts the
+    dedupe pass's matches of >= 256 B, but -m1/-m2 emit a token for every
+    match of >= 4 B (8 MiB of 61-byte log lines at -m1 hold 70,522 against
+    its 36,864).  A token takes at least 2 bytes (its tag and an offset
+    varint), so a stream of n bytes holds at most n // 2 tokens.  The
+    first parse reads at most `total` bytes, the second at most out_cap
+    (the bound of the first's output, which Lpx and the filters do not
+    lengthen), so max(total, out_cap) // 2 slots hold any stream that can
+    decode: 4.7 M for an 8 MiB block, 94 MB of K11 slots and at most 170
+    MB of its scratch on an 80 GB card.  A bound, not K11's own count, so
+    that the slots are known before the parse and its head kernel fills
+    them in the same launch."""
+    return max(max(total, out_cap) // 2, 4096)
 
 
 def decode_block_device(payload: bytes, crc: int, blocksize: int,
@@ -103,9 +120,10 @@ def decode_block_device(payload: bytes, crc: int, blocksize: int,
     shapes = plan_shapes([meta], [len(payload)], blocksize, lanes)
     pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(dev)
     t1 = time.perf_counter()
+    max_tokens = token_slots(int(meta["chunk_olens"].sum()),
+                             shapes["out_cap"])
     out, n, ok = decode_block_core(pay, meta, lanes, units, shapes["out_cap"],
-                                   shapes["max_tokens"], int(lpx_spans),
-                                   times)
+                                   max_tokens, int(lpx_spans), times)
     if not ok:
         raise ValueError("device decode failed (corrupt stream)")
     t2 = time.perf_counter()

@@ -13,8 +13,10 @@ Supported configuration: match_finder 0, 1, 2 or 3, filters 0, 1 or 2 (the
 -f1/-f2 config search runs on the device, kernels/filters_search.py), any
 Lpx span count, with or without the per-block gate (lpx_auto), at every
 block length from 0 up; archives are byte-identical to the native host
-engine's at the same Options.  -f3 raises NotImplementedError (its device
-filter search is not ported yet); there is no host route for any block,
+engine's at the same Options.  -f3 raises NotImplementedError, as the JAX
+package's fused encode does: its device filter search runs on the
+per-stage engine (runtime/engines.GpuEngine); there is no host route for
+any block,
 and asking for CUDA without a card raises RuntimeError.
 """
 
@@ -26,7 +28,7 @@ from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
 from ..format.varint import encode_leb128
 from ..stages.ans import write_chunk_header
-from ..stages.lz77 import lz_encode
+from .engines import NativeEngine
 from .options import LZ_MODE_STORE, Options, validate_match_finder
 
 from ..device import resolve
@@ -86,7 +88,7 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     if opt.filters not in (0, 1, 2):
         raise NotImplementedError(
             "device encode runs -f0/-f1/-f2: the -f3 device filter search "
-            "is not ported yet")
+            "runs on the per-stage engine (runtime.engines.GpuEngine)")
     mode = validate_match_finder(int(opt.match_finder))
     dev = resolve(device)
     data = np.ascontiguousarray(np.asarray(data, dtype=np.uint8))
@@ -101,7 +103,7 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
         tok = torch.as_tensor(END_TOKEN, device=dev)
         s1 = torch.cat([tok, _h2d(data, dev)])
     else:
-        s1 = lz_encode(data, 0)
+        s1 = NativeEngine().lz_encode(data, 0)
         mark("lz_pre")
         s1 = _h2d(s1, dev)
     mark("h2d")
@@ -115,7 +117,7 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     else:
         s2 = s2.cpu().numpy()
         mark("d2h_s2")
-        s3 = lz_encode(s2, mode)
+        s3 = NativeEngine().lz_encode(s2, mode)
         mark("lz")
         s3 = _h2d(s3, dev)
         mark("h2d_s3")

@@ -76,3 +76,20 @@ def encode_golden(name: str):
         decompress_stream_device(io.BytesIO(arc.getvalue()), out, "cpu")
     assert raw == len(data) and comp == len(arc.getvalue())
     return arc.getvalue() == _read(name), out.getvalue() == data
+
+
+ARCHIVES = sorted(f for f in os.listdir(FIXTURES)
+                  if f.startswith("golden_") and not f.endswith(".bin"))
+
+
+def decode_golden_engine(name: str, engine) -> bool:
+    """Decode archive `name` through runtime.pipeline.decompress_stream
+    with a stage engine of the port; whether it gave golden_input.bin
+    back."""
+    from jampack_tpu_torch.runtime.pipeline import decompress_stream
+
+    arc, out = _read(name), io.BytesIO()
+    with one_thread():
+        comp, raw = decompress_stream(io.BytesIO(arc), out, engine)
+    assert raw == len(out.getvalue())
+    return out.getvalue() == _read("golden_input.bin")

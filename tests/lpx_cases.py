@@ -134,3 +134,15 @@ def lz_case(name: str):
         return buf, buf.size, 40, 1 << 20
     buf = token_stream(3000, 4)
     return buf, buf.size, 4096, 1 << 20
+
+
+def short_lines(n: int) -> np.ndarray:
+    """10-byte records ("%05d,1,OK\\n", a copy of chip_smoke.short_lines):
+    at -m1 -f0 -S0 128 KiB of them hold 11,918 LZ tokens, one every 11
+    bytes."""
+    out = bytearray()
+    i = 0
+    while len(out) < n:
+        out += b"%05d,1,OK\n" % (i % 100000)
+        i += 1
+    return np.frombuffer(bytes(out[:n]), np.uint8)

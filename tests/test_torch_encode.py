@@ -32,6 +32,7 @@ from jampack_tpu_torch.runtime.device_encode import (
     encode_block_device_ex,
 )
 
+from golden_cases import one_thread
 from rank_cases import CASES, edge_chunks, rank_rows
 from rans_encode_cases import (
     PAIRS_CASES,
@@ -303,11 +304,13 @@ def test_archive_round_trip(total):
     want = io.BytesIO()
     raw_w, _ = compress_stream(io.BytesIO(data), want, opt, NativeEngine())
     got = io.BytesIO()
-    raw, comp = compress_stream_device(io.BytesIO(data), got, opt, "cpu")
+    back = io.BytesIO()
+    # one torch thread: the plain walks beside other test workers
+    with one_thread():
+        raw, comp = compress_stream_device(io.BytesIO(data), got, opt, "cpu")
+        decompress_stream_device(io.BytesIO(got.getvalue()), back, "cpu")
     assert got.getvalue() == want.getvalue()
     assert raw == raw_w == total and comp == len(got.getvalue())
-    back = io.BytesIO()
-    decompress_stream_device(io.BytesIO(got.getvalue()), back, "cpu")
     assert back.getvalue() == data
 
 
@@ -368,8 +371,11 @@ def test_cli_fused_encode_matches_host(tmp_path):
     res = _cli("c", src, dflt, *flags, "--device=cpu")
     assert res.returncode == 0, res.stderr
     assert dflt.read_bytes() == host.read_bytes()
-    res = _cli("c", src, tmp_path / "x.jt3", *flags, "--engine", "native")
-    assert res.returncode != 0 and "jampack_tpu.cli c" in res.stderr
+    nat = tmp_path / "native.jt3"
+    res = _cli("c", src, nat, *flags, "--engine", "native")
+    assert res.returncode == 0, res.stderr
+    assert "[native]" in res.stdout
+    assert nat.read_bytes() == host.read_bytes()
 
 
 @pytest.mark.parametrize("flags,word", [
@@ -381,5 +387,5 @@ def test_cli_fused_refuses_unported(tmp_path, flags, word):
     res = _cli("c", src, tmp_path / "out.jt3", *flags, "--engine=fused",
                "--device", "cpu")
     assert res.returncode != 0 and word in res.stderr
-    assert "python -m jampack_tpu.cli c" in res.stderr
+    assert "--engine gpu" in res.stderr
     assert not (tmp_path / "out.jt3").exists()

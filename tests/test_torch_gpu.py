@@ -859,3 +859,125 @@ def test_lpx_kernel_matches_native_on_8mib_of_log_records(cuda, spans):
     assert np.array_equal(got.cpu().numpy(), want)
     back = lpx.lpx_dyn(got, stage.size, spans, True)
     assert torch.equal(back, x)
+
+
+# ---------------------------------------------------------------------------
+# the stage engines on the card
+
+
+def _engine_block(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b" etaoinshrdlucmfwypvbgkqjxz.,\n", np.uint8)
+    third = n // 3
+    t = np.arange(third // 4 + 1)
+    sines = np.stack([3000 * np.sin(t / 40.0), 5000 * np.cos(t / 95.0)], 1)
+    sines = (sines + rng.normal(0, 2, sines.shape)).astype(np.int16)
+    return np.concatenate([log_records(third),
+                           alpha[rng.integers(0, 30, third)],
+                           sines.view(np.uint8).reshape(-1)])[:n]
+
+
+@pytest.mark.parametrize("stage", ["lz_decode", "lpx", "filters1",
+                                   "filters2", "filters3", "bwt", "ans0",
+                                   "ans4"])
+def test_gpu_engine_stage_on_cuda_matches_its_cpu_run(cuda, stage):
+    """Each device stage of the per-stage engine on the card against the
+    same engine on the CPU (the plain versions of its kernels), exact."""
+    from jampack_tpu_torch.runtime.engines import GpuEngine
+
+    gpu, cpu, nat = GpuEngine(cuda), GpuEngine("cpu"), NativeEngine()
+    data = _engine_block(150000, 2)
+    s1 = np.asarray(nat.lz_encode(data, 0), np.uint8)
+    if stage == "lz_decode":
+        for mode in (0, 1):
+            s = np.asarray(nat.lz_encode(data, mode), np.uint8)
+            assert np.array_equal(gpu.lz_decode(s), cpu.lz_decode(s))
+    elif stage == "lpx":
+        for spans in (4, 64):
+            enc = gpu.lpx_encode(s1, spans)
+            assert np.array_equal(enc, cpu.lpx_encode(s1, spans))
+            assert np.array_equal(gpu.lpx_decode(enc, spans), s1)
+    elif stage.startswith("filters"):
+        mode = int(stage[-1])
+        enc = gpu.filters_encode(s1, mode)
+        assert np.array_equal(enc, cpu.filters_encode(s1, mode))
+        assert np.array_equal(gpu.filters_decode(enc), s1)
+    elif stage == "bwt":
+        for units in (120, 960):
+            fwd = gpu.bwt_forward(s1, units)
+            assert np.array_equal(fwd, cpu.bwt_forward(s1, units))
+            assert np.array_equal(gpu.bwt_inverse(fwd, units), s1)
+    else:
+        lanes = int(stage[-1])
+        fwd = np.asarray(nat.bwt_forward(s1, 960), np.uint8)
+        enc = gpu.ans_encode(fwd, 16384, lanes)
+        assert enc == cpu.ans_encode(fwd, 16384, lanes)
+        assert np.array_equal(
+            gpu.ans_decode(np.frombuffer(enc, np.uint8), lanes=lanes), fwd)
+
+
+def test_gpu_engine_on_threads_counts_every_launch(cuda):
+    """Four host threads drive the per-stage engine at once: each result
+    equals the one-thread run, and the launch counts add up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jampack_tpu_torch.runtime.engines import GpuEngine
+
+    gpu = GpuEngine(cuda)
+    nat = NativeEngine()
+    streams = [np.asarray(nat.bwt_forward(_engine_block(200000, s), 960),
+                          np.uint8) for s in range(8)]
+    want = [gpu.ans_encode(s, 16384, 4) for s in streams]
+    kernels = (rans_encode.PAIRS_KERNEL, rans_encode.REVERSE_KERNEL)
+    before = [k.launches for k in kernels]
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(lambda s: gpu.ans_encode(s, 16384, 4), streams))
+    assert got == want
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 8]
+
+
+def test_hybrid_engine_on_cuda_writes_the_native_archive(cuda):
+    from jampack_tpu_torch.runtime import pipeline
+    from jampack_tpu_torch.runtime.engines import HybridEngine
+
+    data = _engine_block(3 << 20, 5).tobytes()
+    opt = pipeline.Options(blocksize=1 << 20)
+    want, got, back = io.BytesIO(), io.BytesIO(), io.BytesIO()
+    pipeline.compress_stream(io.BytesIO(data), want, opt, NativeEngine())
+    hyb = HybridEngine(device=cuda)
+    pipeline.compress_stream(io.BytesIO(data), got, opt, hyb)
+    pipeline.decompress_stream(io.BytesIO(got.getvalue()), back, hyb)
+    assert got.getvalue() == want.getvalue() and back.getvalue() == data
+    assert hyb.routes == {"device": 8}
+
+
+def test_token_dense_8mib_block_decodes_on_cuda(cuda):
+    """ROADMAP A9: 8 MiB of 61-byte log records at -m1 hold more LZ tokens
+    than plan_shapes gives the JAX decode; the port's own `cli c` archive
+    decodes on the card, K11 twice."""
+    data = log_records(8 << 20)
+    opt = PortOptions(match_finder=1)
+    crc, payload, spans = encode_block_device_ex(data, opt, cuda)
+    from jampack_tpu_torch.runtime import device_decode as dd
+
+    meta = dd.block_meta(payload, 0)
+    slots = dd.plan_shapes([meta], [len(payload)], opt.blocksize,
+                           0)["max_tokens"]
+    eng = NativeEngine()
+    s4 = np.asarray(eng.lz_encode(eng.lpx_encode(eng.filters_encode(
+        eng.lz_encode(data, 0), 1), 4), 1), np.uint8)
+    from jampack_tpu_torch.stages.lz77 import read_token
+
+    buf, pos, tokens = s4.tobytes(), 0, 0
+    while True:
+        _, lit, off, pos = read_token(buf, pos)
+        tokens += 1
+        if off == 0:
+            break
+        pos += lit
+    assert tokens > slots
+    before = device_stages.LZ_KERNEL.launches
+    back = decode_block_device(payload, crc, opt.blocksize, 120, 0, spans,
+                               device=cuda)
+    assert device_stages.LZ_KERNEL.launches - before == 2
+    assert np.array_equal(back, data)

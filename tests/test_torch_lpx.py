@@ -21,7 +21,7 @@ from jampack_tpu.runtime.pipeline import _lpx_gain_gate
 from jampack_tpu.stages.lpx import lpx_decode, lpx_encode
 from jampack_tpu_torch.kernels import device_stages as tds
 from jampack_tpu_torch.kernels.lpx import lpx_dyn, lpx_walk_plain
-from jampack_tpu_torch.stages.lpx import gain_gate
+from jampack_tpu_torch.runtime.pipeline import gain_gate
 
 from lpx_cases import LZ_BAD, LZ_CASES, log_records, lpx_inputs, lz_case
 

@@ -1,7 +1,8 @@
 """The host-LZ encode route (-m0/-m1/-m2) on the CPU, held against the JAX
 package and the native host engine, exactly.
 
-The port's LZ stage (stages.lz77.lz_encode over its native copy) against
+The port's LZ stage (runtime.engines.NativeEngine.lz_encode over its native
+copy, which the device encode runs) against
 the native and the spec engines; encode_front and encode_back against
 JAX's encode_front_jit and encode_back_jit on the same stage streams and
 picks; the CLI's default encode against the JAX package's CLI and
@@ -25,12 +26,13 @@ from jampack_tpu_torch.runtime.device_encode import (
     encode_block_device_ex,
     filter_configs,
 )
-from jampack_tpu_torch.stages.lz77 import lz_encode
+from jampack_tpu_torch.runtime.engines import NativeEngine as PortNative
 
 from golden_cases import one_thread
 from lpx_cases import log_records
 from lz_encode_cases import block, mixed
 
+lz_encode = PortNative().lz_encode
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
 FBS = 64 << 10
