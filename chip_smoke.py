@@ -45,7 +45,8 @@ and the stage engines (--engine native, hybrid and gpu):
   7. fused     the 32 MiB through `cli c -m3 -f0 ...` on cuda, encode
                launch counts zeroed just before: the archive must equal the
                oracle's byte for byte, and every encode kernel must have run
-               once per block, the trailing empty block included
+               once a batch (the blocks of one length in a card's run of a
+               window), the trailing empty block a batch of its own
   8. round     that archive through `cli d` on cuda, decode counts zeroed:
                the input comes back, every decode kernel ran
   9. split     the per-stage times of block 0's -f0 device encode
@@ -130,6 +131,31 @@ and the stage engines (--engine native, hybrid and gpu):
                of the codec runs it), exact against its plain version at
                S = 1024, 4096 and 16384 int32 elements a block, 8 Mi in
                all, timed beside index_copy_
+ 23. batch     (run after phase 20, in its temporary directory) the oracle
+               encodes the 32 MiB with the reference's defaults (-m0 -f1
+               -S4, JAM); both 32 MiB archives (JT3 of phase 3, JAM) decode
+               one block at a time and as one batch
+               (decode_blocks_device): exact, the stage split of each, K1,
+               K2 and K10 once a batch, each of their wrappers timed on the
+               one-block calls and on the batch's call, and the peak device
+               memory of one block and of four; the 4 x 8 MiB likewise
+               through the -m3 -f1 encode in JAM (-S4) and JT3 (-c16 -L4
+               -u960 -S4096 -Sa) streams (encode_blocks_device: K4, K5, K6
+               and K10 once a batch, byte-identical to the blocks one at a
+               time, decoded back); the CLI's default batch itself
+               (sharding.batch_blocks' count, the four JAM blocks
+               repeated) decoded and encoded as one batch each: exact,
+               each batched kernel once, and the card's reserved peak
+               within batch_blocks' budget; `cli d` of the JAM archive and `cli c
+               -m0 -f1 -S4` of the 32 MiB through runtime/sharding.py,
+               exact and byte-identical to the oracle; decode_archive_sharded
+               of both archives and encode_archive_sharded -m3 -f1 on
+               ["cuda:0", "cuda:0"] (and on every card when there are more),
+               against the input and the oracle; codec_block_step on 8 MiB
+               less 8 bytes (120 units divide it); dryrun_multichip(["cuda:0",
+               "cuda:0"]); the compute walls of the production and JAM blocks
+               both ways; one device_trace of a batched decode, whose file
+               must exist; the numbers as one "phase23 {...}" line
 
 Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
@@ -157,7 +183,8 @@ launches of its own run); K4, K5, K6, K7 and K10 give their launches on
 each encode of phase 18, host_lz_launches, and K6 its time at the JAM
 shape, jam_ms and jam_cycles_per_step; K11 the numbers of phase 19,
 token_dense; every kernel the stage engines launched in phase 20 its
-launches there by run, engine_launches; then
+launches there by run, engine_launches; every kernel phase 23's batched
+and one-at-a-time runs launched its launches by run, batch_launches; then
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -525,6 +552,27 @@ def count_blocks(framing, data: bytes) -> int:
     return len(span_words(framing, data))
 
 
+def block_lengths(size: int, blocksize: int) -> list:
+    """The raw length of each block the encode of `size` bytes frames, the
+    reference's trailing empty block of an exact multiple included."""
+    return [min(blocksize, size - i) for i in range(0, size, blocksize)] + (
+        [0] if size % blocksize == 0 else [])
+
+
+def cli_batches(keys, per: int, cards: int, keep=lambda k: True) -> int:
+    """The batches the fused CLI runs (runtime/sharding.py) for blocks
+    with these keys, the span words on decode and the raw lengths of a -m3
+    encode: a window of per x cards blocks at a time, cut into one run a
+    card, one batch a distinct key of a run (counted where keep(key))."""
+    n = 0
+    for w in range(0, len(keys), per * cards):
+        window = keys[w:w + per * cards]
+        step = -(-len(window) // cards)
+        for r in range(0, len(window), step):
+            n += sum(1 for k in set(window[r:r + step]) if keep(k))
+    return n
+
+
 @contextlib.contextmanager
 def caught(module, name: str, calls: list):
     """While active, module.name records the positional arguments of each
@@ -559,6 +607,7 @@ def host_lz_route(cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx,
     ({kernel name: {path: launches}}, K6's row entries at the JAM
     shape)."""
     from jampack_tpu_torch import native
+    from jampack_tpu_torch.format import framing
     from jampack_tpu_torch.runtime.options import Options
 
     t0 = time.perf_counter()
@@ -596,7 +645,7 @@ def host_lz_route(cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx,
                                                 dev_arc, flags)
         check(dev_bytes == read(host_arc),
               f"the {label} archive differs from the oracle's")
-        nblk = count_blocks(dd.framing, dev_bytes)
+        nblk = count_blocks(framing, dev_bytes)
         got = dict(zip(names, launches))
         for name in once:
             check(got[name] == nblk, f"{label}: {name} launched "
@@ -605,7 +654,7 @@ def host_lz_route(cli, de, dd, encode_stages, all_kernels, dec_kernels, lpx,
               f"{got['joint_hist']} times for {nblk} blocks")
         for name in out:
             out[name][label] = got[name]
-        words = span_words(dd.framing, dev_bytes)
+        words = span_words(framing, dev_bytes)
         kernels = dec_kernels + ([lpx.KERNEL] if all(words) else [])
         dec_s, _ = decode_cli(cli, kernels, dev_arc, back)
         check(read(back) == data.tobytes(),
@@ -645,6 +694,8 @@ def token_dense(cli, dd, device_stages, all_kernels, dec_kernels, lpx, tmp,
     than plan_shapes gives the JAX decode; the archive must equal the
     oracle's and decode on cuda through `cli d`, K11 twice a block.
     Returns its numbers for K11's row."""
+    from jampack_tpu_torch.format import framing
+
     data = log_records(BLOCK)
     src = os.path.join(tmp, "records-a9.bin")
     host_arc = os.path.join(tmp, "records-a9.host.jam")
@@ -656,14 +707,14 @@ def token_dense(cli, dd, device_stages, all_kernels, dec_kernels, lpx, tmp,
     enc_s, _, dev_bytes = encode_cli(cli, all_kernels, src, dev_arc, ["-m1"])
     check(dev_bytes == read(host_arc),
           "the -m1 log-records archive differs from the oracle's")
-    nblk = count_blocks(dd.framing, dev_bytes)
+    nblk = count_blocks(framing, dev_bytes)
     dec_s, launches = decode_cli(cli, dec_kernels + [lpx.KERNEL], dev_arc,
                                  back)
     check(read(back) == data.tobytes(), "the token-dense archive did not decode")
     check(launches[3] == 2 * nblk, f"lz_parse launched {launches[3]} times "
           f"for {nblk} blocks")
     with open(dev_arc, "rb") as f:
-        h, pay = dd.framing.read_block(f)
+        h, pay = framing.read_block(f)
     meta = dd.block_meta(pay, h.lanes)
     shapes = dd.plan_shapes([meta], [len(pay)], h.blocksize, h.lanes)
     slots = dd.token_slots(int(meta["chunk_olens"].sum()), shapes["out_cap"])
@@ -712,6 +763,453 @@ def engine_cli(cli, kernels, mode, src, dst, flags, engine, dev="cuda"):
     return wall, {k.name: k.launches for k in kernels}, text
 
 
+@contextlib.contextmanager
+def recorded(module, name: str, calls: list):
+    """While active, module.name records (args, kwargs) of each call in
+    `calls`, tensors cloned, before it runs."""
+    real = getattr(module, name)
+
+    def keep(a):
+        return a.clone() if hasattr(a, "clone") else a
+
+    def spy(*args, **kwargs):
+        calls.append((tuple(keep(a) for a in args),
+                      {k: keep(v) for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def peak_bytes(fn, dev) -> int:
+    """Device bytes fn() allocates at its peak above what was live."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - base
+
+
+def one_and_batch(name, fn, one_calls, batch_calls, reps: int) -> dict:
+    """A batched stage's wrapper timed on the arguments the one-block path
+    gave it (each block's call) and on the batch's one call: CUDA events,
+    the mean of `reps` runs after a warm-up.  Returns {"one_ms": the sum
+    over the blocks, "batch_ms": the batch's, "calls": blocks}."""
+    one = 0.0
+    for args, kw in one_calls:
+        fn(*args, **kw)
+        one += cuda_ms(lambda: fn(*args, **kw), reps)
+    (args, kw), = batch_calls
+    fn(*args, **kw)
+    batch = cuda_ms(lambda: fn(*args, **kw), reps)
+    print(f"  {name}: {len(one_calls)} one-block calls {one:.3f} ms in all; "
+          f"the batch's one call {batch:.3f} ms")
+    return {"one_ms": one, "batch_ms": batch, "calls": len(one_calls)}
+
+
+def batch_phase(cli, dd, de, device_stages, encode_stages, lpx, rans,
+                rank, rans_encode, sharding, metrics, dryrun, kernels, tmp,
+                src, prod_arc, f1_arc, want, per, cards, dev):
+    """Phase 23: batched blocks and several workers.  Returns the kernels
+    JSON's batch_launches ({kernel name: {run: launches}}) and the
+    numbers PERF.md records ({"decode": ..., "encode": ..., ...})."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from jampack_tpu_torch.format import framing
+    from jampack_tpu_torch.runtime import sysinfo
+    from jampack_tpu_torch.runtime.options import Options
+
+    launches = {}
+
+    def counted(run, label):
+        zero(kernels)
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        for k in kernels:
+            if k.launches:
+                launches.setdefault(k.name, {})[label] = k.launches
+        return got, wall, {k.name: k.launches for k in kernels}
+
+    def walled(run) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    result = {"decode": {}, "encode": {}, "peak_bytes": {}}
+    jam_arc = os.path.join(tmp, "textlike32.jam")
+    jam_s = oracle(src, jam_arc, ["-m0", "-f1", "-S4"])
+    print(f"phase 23: oracle JAM archive (-m0 -f1 -S4) of the 32 MiB in "
+          f"{jam_s:.1f} s, {os.path.getsize(jam_arc)} B")
+
+    # ---- the batch against one block at a time: decode
+    for label, path in (("jt3", prod_arc), ("jam", jam_arc)):
+        with open(path, "rb") as f:
+            recs = []
+            while (rec := framing.read_block(f)) is not None:
+                recs.append(rec)
+        h0 = recs[0][0]
+        words = [h.lpx_spans for h, _ in recs]
+        t_one, t_batch = {}, {}
+
+        def one_run(times):
+            return [dd.decode_block_device(p, h.crc, h.blocksize, h.units,
+                                           h.lanes, h.lpx_spans, dev, times)
+                    for h, p in recs]
+
+        def batch_run(times):
+            return dd.decode_blocks_device(
+                [p for _, p in recs], [h.crc for h, _ in recs],
+                h0.blocksize, h0.units, h0.lanes, words, dev, times)
+
+        # in turns: one, batch (stages synchronized), batch, one (not)
+        one, one_s, one_l = counted(lambda: one_run(t_one),
+                                    f"decode {label} one at a time")
+        batch, batch_s, batch_l = counted(lambda: batch_run(t_batch),
+                                          f"decode {label} batch")
+        walls = [walled(lambda: batch_run(None)),
+                 walled(lambda: one_run(None))]
+        check(b"".join(o.tobytes() for o in one) == want
+              and b"".join(b.tobytes() for b in batch) == want,
+              f"the {label} batch or its blocks did not decode to the input")
+        groups = len(set(words))
+        check(batch_l["rans_decode"] == batch_l["rank_decode"] == groups
+              and batch_l["lpx_walk"] == len({w for w in words if w > 0}),
+              f"decode {label}: the batch launched {batch_l}")
+        print(f"decode {label}: {len(recs)} blocks one at a time "
+              f"{one_s:.3f} s, as one batch {batch_s:.3f} s (stages "
+              f"synchronized); unsynchronized batch {walls[0]:.3f} s, one "
+              f"at a time {walls[1]:.3f} s; exact; launches one at a time "
+              f"{one_l}, batch {batch_l}")
+        print(f"  stages one at a time (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in t_one.items()))
+        print(f"  stages of the batch (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in t_batch.items()))
+        # the batched stages' wrappers, one block's calls against the
+        # batch's; and the peak memory of one block and of the four full
+        # blocks, for sharding.batch_blocks
+        full = recs[:NBLOCKS]
+        c_one = {"K1": [], "K2": [], "K10": []}
+        c_batch = {"K1": [], "K2": [], "K10": []}
+
+        def run(calls, blocks):
+            with recorded(device_stages, "decode_lanes_wide", calls["K1"]), \
+                    recorded(device_stages, "rank_decode", calls["K2"]), \
+                    recorded(lpx, "lpx_walk", calls["K10"]):
+                dd.decode_blocks_device(
+                    [p for _, p in blocks], [h.crc for h, _ in blocks],
+                    h0.blocksize, h0.units, h0.lanes,
+                    [h.lpx_spans for h, _ in blocks], dev)
+
+        for blk in full:
+            run(c_one, [blk])
+        run(c_batch, full)
+        stage_ms = {
+            "K1": one_and_batch(f"rans_decode ({label})",
+                                rans.decode_lanes_wide, c_one["K1"],
+                                c_batch["K1"], 2),
+            "K2": one_and_batch(f"rank_decode ({label})", rank.rank_decode,
+                                c_one["K2"], c_batch["K2"], 2)}
+        if c_batch["K10"]:
+            stage_ms["K10"] = one_and_batch(f"lpx_walk decode ({label})",
+                                            lpx.lpx_walk, c_one["K10"],
+                                            c_batch["K10"], 1)
+        del c_one, c_batch
+        if label == "jam":
+            jam_full = full
+        peaks = [peak_bytes(lambda: dd.decode_blocks_device(
+            [p for _, p in full[:b]], [h.crc for h, _ in full[:b]],
+            h0.blocksize, h0.units, h0.lanes,
+            [h.lpx_spans for h, _ in full[:b]], dev), dev)
+            for b in (1, len(full))]
+        result["peak_bytes"][f"decode {label}"] = peaks
+        print(f"  peak device memory: {peaks[0]} B for one block, {peaks[1]}"
+              f" B for {len(full)}")
+        result["decode"][label] = {
+            "blocks": len(recs), "one_s": one_s, "batch_s": batch_s,
+            "batch_wall_s": walls[0], "one_wall_s": walls[1],
+            "one_stages": t_one, "batch_stages": t_batch,
+            "kernel_ms": stage_ms}
+
+    # ---- the batch against one block at a time: the -m3 encode
+    blocks = [np.frombuffer(want[i * BLOCK:(i + 1) * BLOCK], np.uint8)
+              for i in range(NBLOCKS)]
+    streams = {"jam": Options(blocksize=BLOCK, match_finder=3, filters=1,
+                              lpx_spans=4),
+               "jt3": Options(blocksize=BLOCK, match_finder=3, filters=1,
+                              rans_lanes=4, ans_chunk=16 << 10,
+                              anchor_units=960, lpx_spans=SA_SPANS,
+                              lpx_auto=True)}
+    for label, opt in streams.items():
+        t_one, t_batch = {}, {}
+        one, one_s, one_l = counted(lambda: [de.encode_block_device_ex(
+            b, opt, dev, t_one) for b in blocks], f"encode {label} one at a "
+            "time")
+        batch, batch_s, batch_l = counted(lambda: de.encode_blocks_device(
+            blocks, opt, dev, t_batch), f"encode {label} batch")
+        walls = [walled(lambda: de.encode_blocks_device(blocks, opt, dev)),
+                 walled(lambda: [de.encode_block_device_ex(b, opt, dev)
+                                 for b in blocks])]
+        check(one == batch, f"encode {label}: the batch differs from its "
+                            "blocks one at a time")
+        if label == "jam":
+            jam_one = one
+        for name in ("rank_encode", "model_pairs", "rans_encode", "lpx_walk"):
+            check(batch_l[name] == 1,
+                  f"encode {label}: {name} launched {batch_l[name]} times")
+        back = dd.decode_blocks_device([b[1] for b in batch],
+                                       [b[0] for b in batch], BLOCK,
+                                       opt.anchor_units, opt.rans_lanes,
+                                       [b[2] for b in batch], dev)
+        check(all(np.array_equal(x, y) for x, y in zip(back, blocks)),
+              f"encode {label}: the batch's payloads did not decode")
+        print(f"encode {label} (-m3 -f1): {NBLOCKS} blocks one at a time "
+              f"{one_s:.3f} s, as one batch {batch_s:.3f} s (stages "
+              f"synchronized); unsynchronized batch {walls[0]:.3f} s, one at "
+              f"a time {walls[1]:.3f} s; byte-identical; "
+              f"span words {[b[2] for b in batch]}; launches one at a time "
+              f"{one_l}, batch {batch_l}")
+        print(f"  stages one at a time (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in t_one.items()))
+        print(f"  stages of the batch (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in t_batch.items()))
+        names = {"K6": (encode_stages, "rank_encode",
+                        encode_stages.rank_encode),
+                 "K4": (encode_stages, "model_pairs_wide",
+                        rans_encode.model_pairs_wide),
+                 "K5": (encode_stages, "rans_reverse_encode_wide",
+                        rans_encode.rans_reverse_encode_wide),
+                 "K10": (lpx, "lpx_walk", lpx.lpx_walk)}
+        c_one = {k: [] for k in names}
+        c_batch = {k: [] for k in names}
+
+        def run_enc(calls, bl):
+            with contextlib.ExitStack() as stack:
+                for k, (mod, attr, _) in names.items():
+                    stack.enter_context(recorded(mod, attr, calls[k]))
+                de.encode_blocks_device(bl, opt, dev)
+
+        for b in blocks:
+            run_enc(c_one, [b])
+        run_enc(c_batch, blocks)
+        stage_ms = {k: one_and_batch(f"{attr} ({label})", fn, c_one[k],
+                                     c_batch[k], 1)
+                    for k, (_, attr, fn) in names.items()}
+        del c_one, c_batch
+        peaks = [peak_bytes(lambda: de.encode_blocks_device(blocks[:b], opt,
+                                                            dev), dev)
+                 for b in (1, NBLOCKS)]
+        result["peak_bytes"][f"encode {label}"] = peaks
+        print(f"  peak device memory: {peaks[0]} B for one block, {peaks[1]}"
+              f" B for {NBLOCKS}")
+        result["encode"][label] = {
+            "blocks": NBLOCKS, "one_s": one_s, "batch_s": batch_s,
+            "batch_wall_s": walls[0], "one_wall_s": walls[1],
+            "one_stages": t_one, "batch_stages": t_batch,
+            "kernel_ms": stage_ms}
+    fixed, per_block = [], []
+    for key, (p1, pn) in result["peak_bytes"].items():
+        b = (pn - p1) / (NBLOCKS - 1)
+        per_block.append(b / BLOCK)
+        fixed.append((p1 - b) / BLOCK)
+    result["peak_per_byte"] = {"fixed": max(fixed),
+                               "per_block": max(per_block)}
+    print(f"peak device memory a batch, in block bytes: "
+          f"{max(fixed):.2f} + {max(per_block):.2f} x B (the larger of "
+          f"decode's and encode's fits; sharding has "
+          f"{sharding.PEAK_FIXED_PER_BYTE} + "
+          f"{sharding.PEAK_PER_BLOCK_PER_BYTE} x B); batch_blocks gives "
+          f"{per} blocks of 8 MiB a batch on this card")
+
+    # ---- the CLI's default batch itself: the four full JAM blocks
+    # repeated to batch_blocks' count, one batch each way; the card's
+    # reserved peak (what the caching allocator holds, all phases' live
+    # tensors included) must stay within batch_blocks' budget
+    budget = 0.8 * sysinfo.device_memory(dev)
+    reps = [jam_full[i % NBLOCKS] for i in range(per)]
+    runs = {
+        "decode": (lambda t: dd.decode_blocks_device(
+            [p for _, p in reps], [h.crc for h, _ in reps], BLOCK,
+            reps[0][0].units, reps[0][0].lanes,
+            [h.lpx_spans for h, _ in reps], dev, t),
+            lambda got: all(np.array_equal(g, blocks[i % NBLOCKS])
+                            for i, g in enumerate(got)),
+            ("rans_decode", "rank_decode", "lpx_walk")),
+        "encode": (lambda t: de.encode_blocks_device(
+            [blocks[i % NBLOCKS] for i in range(per)], streams["jam"], dev,
+            t),
+            lambda got: got == [jam_one[i % NBLOCKS] for i in range(per)],
+            ("rank_encode", "model_pairs", "rans_encode", "lpx_walk"))}
+    result["default_batch"] = {"blocks": per, "budget_bytes": budget}
+    for what, (run_big, exact, names) in runs.items():
+        t_big = {}
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        got, big_s, big_l = counted(lambda: run_big(t_big),
+                                    f"{what} jam default batch")
+        reserved = torch.cuda.max_memory_reserved(dev)
+        allocated = torch.cuda.max_memory_allocated(dev)
+        check(exact(got), f"the default batch of {per} JAM blocks: {what} "
+                          "differs from the blocks one at a time")
+        del got
+        for name in names:
+            check(big_l[name] == 1, f"the default batch's {what}: {name} "
+                                    f"launched {big_l[name]} times")
+        check(reserved <= budget,
+              f"the default batch's {what} reserved {reserved} B of the "
+              f"card, over batch_blocks' budget of {budget:.0f} B")
+        print(f"default batch, {what} JAM: {per} blocks of 8 MiB in "
+              f"{big_s:.3f} s (stages synchronized), exact, each batched "
+              f"kernel once; peak reserved {reserved} B, allocated "
+              f"{allocated} B, budget {budget:.0f} B")
+        print(f"  stages (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in t_big.items()))
+        result["default_batch"][what] = {
+            "s": big_s, "stages": t_big, "reserved_bytes": reserved,
+            "allocated_bytes": allocated}
+    del reps
+
+    # ---- the CLI through runtime/sharding.py on the 32 MiB archives
+    through = []
+
+    def spy_on(name):
+        real = getattr(sharding, name)
+
+        def spy(*args, **kwargs):
+            through.append(name)
+            return real(*args, **kwargs)
+        return real, spy
+
+    out = os.path.join(tmp, "phase23.out")
+    dev_jam = os.path.join(tmp, "textlike32.dev.jam")
+    saved = {}
+    for name in ("decode_archive_to", "encode_archive_sharded"):
+        saved[name], spy = spy_on(name)
+        setattr(sharding, name, spy)
+    try:
+        words = span_words(framing, read(jam_arc))
+        d_s, d_l = decode_cli(cli, [rans.KERNEL, rank.KERNEL, lpx.KERNEL],
+                              jam_arc, out)
+        check(read(out) == want, "`cli d` of the JAM archive differs")
+        check(d_l[0] == d_l[1] == cli_batches(words, per, cards) and
+              d_l[2] == cli_batches(words, per, cards, lambda w: w > 0),
+              f"`cli d` (JAM) launches {d_l}")
+        c_s, c_l, c_bytes = encode_cli(cli, kernels, src, dev_jam,
+                                       ["-m0", "-f1", "-S4"])
+        check(c_bytes == read(jam_arc),
+              "`cli c -m0 -f1 -S4` differs from the oracle's JAM archive")
+    finally:
+        for name, real in saved.items():
+            setattr(sharding, name, real)
+    check(through == ["decode_archive_to", "encode_archive_sharded"],
+          f"the fused CLI did not go through sharding: {through}")
+    print(f"cli --engine fused via sharding: d (JAM, 32 MiB) {d_s:.3f} s, "
+          f"exact, launches {d_l}; c -m0 -f1 -S4 {c_s:.3f} s, "
+          f"byte-identical to the oracle")
+    result["cli"] = {"decode_jam_s": d_s, "encode_jam_s": c_s}
+
+    # ---- two workers on one card, and every card when there are more
+    meshes = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() > 1:
+        meshes.append(sharding.make_mesh())
+    result["mesh"] = {}
+    for mesh in meshes:
+        key = " ".join(str(d) for d in mesh)
+        t0 = time.perf_counter()
+        for path in (prod_arc, jam_arc):
+            with open(path, "rb") as f:
+                check(sharding.decode_archive_sharded(f, mesh) == want,
+                      f"decode_archive_sharded on {key} differs")
+        dec_s = time.perf_counter() - t0
+        opt_f1 = Options(blocksize=BLOCK, match_finder=3, filters=1,
+                         rans_lanes=4, ans_chunk=16 << 10, anchor_units=960,
+                         lpx_spans=0)
+        got = io.BytesIO()
+        t0 = time.perf_counter()
+        with open(src, "rb") as f:
+            sharding.encode_archive_sharded(f, got, opt_f1, mesh)
+        enc_s = time.perf_counter() - t0
+        check(got.getvalue() == read(f1_arc),
+              f"encode_archive_sharded -m3 -f1 on {key} differs from the "
+              "oracle's")
+        print(f"mesh {key}: decode of both 32 MiB archives {dec_s:.3f} s, "
+              f"the -m3 -f1 encode {enc_s:.3f} s, byte-identical")
+        result["mesh"][key] = {"decode_both_s": dec_s, "encode_f1_s": enc_s}
+
+    # ---- the flagship step on one 8 MiB block (120 units divide it)
+    n = 120 * (BLOCK // 120)
+    block = torch.from_numpy(np.frombuffer(want[:n], np.uint8).copy()).to(dev)
+    sharding.codec_block_step(block)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    recon, bwt, metric = sharding.codec_block_step(block)
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    check(torch.equal(recon, block), "codec_block_step did not invert")
+    check(int(metric) == int(bwt.long().sum()) & 0xFFFFFFFF,
+          "codec_block_step's metric")
+    print(f"codec_block_step: {n} B, exact, {step_s:.3f} s (second run)")
+    result["codec_block_step_s"] = step_s
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(["cuda:0", "cuda:0"])
+    print(f"dryrun_multichip(['cuda:0', 'cuda:0']): ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- the compute walls, production and JAM blocks
+    walls = {}
+    for label, path in (("jt3", prod_arc), ("jam", jam_arc)):
+        with open(path, "rb") as f:
+            h, p = framing.read_block(f)
+        walls[f"decode {label}"] = metrics.fused_decode_compute_wall(
+            p, h.blocksize, h.units, h.lanes, h.lpx_spans, 3, dev)
+    for label, opt in (("jt3", Options(blocksize=BLOCK, match_finder=3,
+                                       rans_lanes=4, ans_chunk=16 << 10,
+                                       anchor_units=960, lpx_spans=0)),
+                       ("jam", Options(blocksize=BLOCK, match_finder=3,
+                                       lpx_spans=4))):
+        walls[f"encode {label}"] = metrics.fused_encode_compute_wall(
+            blocks[0], opt, 3, dev)
+    print("compute walls (s, best of 3, CUDA events): " + ", ".join(
+        f"{k}={v:.4f}" for k, v in walls.items()))
+    result["walls"] = walls
+
+    # ---- one trace of a batched decode
+    with open(jam_arc, "rb") as f:
+        recs = []
+        while (rec := framing.read_block(f)) is not None:
+            recs.append(rec)
+    logdir = os.path.join(tmp, "trace")
+    with metrics.device_trace(logdir) as prof:
+        dd.decode_blocks_device([p for _, p in recs], [h.crc for h, _ in recs],
+                                BLOCK, 120, 0, [h.lpx_spans for h, _ in recs],
+                                dev)
+        torch.cuda.synchronize(dev)
+    trace = os.path.join(logdir, "trace.json")
+    check(os.path.exists(trace) and os.path.getsize(trace) > 0,
+          "device_trace wrote no trace")
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in prof.key_averages())
+    print(f"device_trace: {os.path.getsize(trace)} B of Chrome trace; "
+          f"device time in it {device_us / 1e3:.3f} ms")
+    result["trace"] = {"bytes": os.path.getsize(trace),
+                       "device_ms": device_us / 1e3}
+    return launches, result
+
+
 def engines_phase(cli, engines, pipeline, dd, kernels, tmp, msrc, mixed,
                   dev) -> dict:
     """Phase 20: the stage engines on the card.  The native engine through
@@ -729,6 +1227,8 @@ def engines_phase(cli, engines, pipeline, dd, kernels, tmp, msrc, mixed,
     `cli i` of each framing against `python -m jampack_tpu.cli i`.
     Returns {kernel name: {run: launches}} on the engine path."""
     import functools
+
+    from jampack_tpu_torch.format import framing
 
     engine_cli_ = functools.partial(engine_cli, dev=dev)
     back = os.path.join(tmp, "engine.out")
@@ -760,7 +1260,7 @@ def engines_phase(cli, engines, pipeline, dd, kernels, tmp, msrc, mixed,
     dec_s, got, dec_text = engine_cli_(cli, kernels, "d", hyb_arc, back, [],
                                       "hybrid")
     check(read(back) == want, "--engine hybrid did not decode")
-    nblk = count_blocks(dd.framing, read(hyb_arc))
+    nblk = count_blocks(framing, read(hyb_arc))
     for text in (enc_text, dec_text):
         check(f"bwt routes: device {nblk}, host 0" in text,
               "the hybrid BWT did not take the device route")
@@ -892,7 +1392,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from jampack_tpu_torch import cli, native
+    from jampack_tpu_torch import cli, dryrun, native
+    from jampack_tpu_torch.format import framing
     from jampack_tpu_torch.kernels import (
         _build,
         block_scatter,
@@ -910,10 +1411,13 @@ def main() -> int:
     )
     from jampack_tpu_torch.runtime import device_decode as dd
     from jampack_tpu_torch.runtime import device_encode as de
-    from jampack_tpu_torch.runtime import engines, pipeline
+    from jampack_tpu_torch.runtime import engines, metrics, pipeline, sharding
     from jampack_tpu_torch.runtime.options import Options
 
     dev = torch.device("cuda:0")
+    # the fused CLI's batch (blocks of 8 MiB a card) and its cards
+    per = sharding.batch_blocks(BLOCK, dev)
+    cards = len(sharding.make_mesh())
     dec_kernels = [rans.KERNEL, rank.KERNEL, ibwt.KERNEL,
                    device_stages.LZ_KERNEL]
     enc_kernels = [encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
@@ -960,7 +1464,7 @@ def main() -> int:
         enc_s = oracle(src, arc, PROD_FLAGS)
         blocks = []
         with open(arc, "rb") as f:
-            while (rec := dd.framing.read_block(f)) is not None:
+            while (rec := framing.read_block(f)) is not None:
                 blocks.append(rec)
         check(len(blocks) == NBLOCKS + 1, f"{len(blocks)} blocks framed")
         check(all(h.lpx_spans == 0 and h.units == 960 and h.lanes == 4
@@ -1048,9 +1552,11 @@ def main() -> int:
         dec_s, dec_launches = decode_cli(cli, dec_kernels, arc, back)
         got = read(back)
         check(got == want, "decoded archive differs from the input")
-        check(NBLOCKS <= dec_launches[1] <= len(blocks),
-              f"rank_decode launched {dec_launches[1]} times for "
-              f"{len(blocks)} blocks")
+        want_batches = cli_batches([h.lpx_spans for h, _ in blocks], per,
+                                   cards)
+        check(dec_launches[0] == dec_launches[1] == want_batches,
+              f"rans_decode / rank_decode launched {dec_launches[:2]} times "
+              f"for {want_batches} batches of {len(blocks)} blocks")
         check(dec_launches[3] == 2 * len(blocks),
               f"lz_parse launched {dec_launches[3]} times for "
               f"{len(blocks)} blocks")
@@ -1173,11 +1679,13 @@ def main() -> int:
         enc_launches = launches[3:6]
         check(dev_bytes == read(host_arc),
               "fused -f0 archive differs from the oracle's")
-        nblk = count_blocks(dd.framing, dev_bytes)
+        nblk = count_blocks(framing, dev_bytes)
         check(nblk == NBLOCKS + 1,
               f"{nblk} blocks framed; the trailing empty block is missing")
+        want_batches = cli_batches(block_lengths(len(want), BLOCK), per, cards)
         for k, c in zip(enc_kernels, enc_launches):
-            check(c == nblk, f"{k.name} launched {c} times for {nblk} blocks")
+            check(c == want_batches, f"{k.name} launched {c} times for "
+                  f"{want_batches} batches of {nblk} blocks")
         print(f"fused -f0 encode: {NBLOCKS * BLOCK} bytes -> {len(dev_bytes)} "
               f"in {enc_s:.3f} s = {NBLOCKS * BLOCK / enc_s / 1e9:.4f} GB/s "
               f"(CLI wall, host CRC and splice included); byte-identical to "
@@ -1188,8 +1696,11 @@ def main() -> int:
         # ---- 8. round trip: the fused archive decodes on the card
         rt_s, rt_launches = decode_cli(cli, dec_kernels, dev_arc, back)
         check(read(back) == want, "fused archive did not decode to the input")
-        check(NBLOCKS <= rt_launches[1] <= nblk,
-              f"rank_decode launched {rt_launches[1]} times for {nblk} blocks")
+        want_batches = cli_batches(span_words(framing, dev_bytes), per,
+                                   cards)
+        check(rt_launches[1] == want_batches,
+              f"rank_decode launched {rt_launches[1]} times for "
+              f"{want_batches} batches of {nblk} blocks")
         print(f"round trip: fused archive decoded in {rt_s:.3f} s, exact; "
               "launches " + ", ".join(
                   f"{k.name}={c}" for k, c in zip(dec_kernels, rt_launches)))
@@ -1200,7 +1711,7 @@ def main() -> int:
         crc, payload0 = de.encode_block_device(block0, opt, dev, times)
         block_s = time.perf_counter() - t0
         with open(dev_arc, "rb") as f:
-            first = dd.framing.read_block(f)
+            first = framing.read_block(f)
         check((crc, payload0) == (first[0].crc, first[1]),
               "block 0 encode differs from the archive's")
         print("encode -f0 block 0 stages (s; device stages synchronized): "
@@ -1325,7 +1836,7 @@ def main() -> int:
                                                   dev_arc, F1_FLAGS)
         check(dev_bytes == read(host_arc),
               "fused -f1 archive differs from the oracle's")
-        nblk = count_blocks(dd.framing, dev_bytes)
+        nblk = count_blocks(framing, dev_bytes)
         check(f1_launches[6] >= nblk,
               f"joint_hist launched {f1_launches[6]} times for {nblk} blocks")
         print(f"fused -f1 encode: {NBLOCKS * BLOCK} bytes -> {len(dev_bytes)} "
@@ -1410,7 +1921,7 @@ def main() -> int:
         try:
             de.encode_block_device(sblock, opt, dev, {})
             with open(dev_arc, "rb") as f:
-                h, pay2 = dd.framing.read_block(f)
+                h, pay2 = framing.read_block(f)
             dd.decode_block_device(pay2, h.crc, h.blocksize, h.units, h.lanes,
                                    h.lpx_spans, dev, {})
         finally:
@@ -1448,23 +1959,25 @@ def main() -> int:
                                                   dev_arc, SA_FLAGS)
         check(dev_bytes == read(host_arc),
               "the -S4096 -Sa archive differs from the oracle's")
-        words = span_words(dd.framing, dev_bytes)
+        words = span_words(framing, dev_bytes)
         check(words == [0, 0, SA_SPANS, 0],
               f"-Sa span words {words}, not [0, 0, {SA_SPANS}, 0]")
         k10, k11 = all_kernels.index(lpx.KERNEL), all_kernels.index(
             device_stages.LZ_KERNEL)
-        check(sa_launches[k10] == len(words),
+        want_batches = cli_batches(block_lengths(len(lpx_in), BLOCK), per,
+                                   cards)
+        check(sa_launches[k10] == want_batches,
               f"lpx_walk launched {sa_launches[k10]} times encoding "
-              f"{len(words)} blocks")
+              f"{want_batches} batches of {len(words)} blocks")
         print(f"fused -S{SA_SPANS} -Sa encode: {len(lpx_in)} bytes (text, log "
               f"records, short lines) -> {len(dev_bytes)} in {sa_s:.3f} s; "
               f"byte-identical to the oracle ({host_s:.1f} s); span words "
               f"{words}; lpx_walk launched {sa_launches[k10]} times (the "
-              "stage runs before the gate)")
+              "stage runs before the gate, once a batch)")
         sa_dec_s, sa_dec = decode_cli(cli, dec_kernels + [lpx.KERNEL],
                                       dev_arc, back)
         check(read(back) == lpx_in, "the -Sa archive did not decode")
-        check(sa_dec[-1] == sum(w > 0 for w in words),
+        check(sa_dec[-1] == cli_batches(words, per, cards, lambda w: w > 0),
               f"lpx_walk launched {sa_dec[-1]} times decoding spans {words}")
         print(f"-Sa decode: {sa_dec_s:.3f} s, exact; lpx_walk launched "
               f"{sa_dec[-1]} time(s), lz_parse {sa_dec[3]}")
@@ -1588,14 +2101,16 @@ def main() -> int:
         check(dev_bytes == read(host_arc),
               "the -m3 -f1 -S4 archive differs from the oracle's")
         check(dev_bytes[:3] == b"JAM", "the -S4 archive is not JAM-framed")
-        words = span_words(dd.framing, dev_bytes)
-        check(jam_launches[k10] == len(words),
+        words = span_words(framing, dev_bytes)
+        check(jam_launches[k10] == cli_batches(
+            block_lengths(rblock.size, BLOCK), per, cards),
               f"lpx_walk launched {jam_launches[k10]} times for "
               f"{len(words)} blocks")
         jam_dec_s, jam_dec = decode_cli(cli, dec_kernels + [lpx.KERNEL],
                                         dev_arc, back)
         check(read(back) == rblock.tobytes(), "the JAM archive did not decode")
-        check(jam_dec[-1] == len(words), "K10 did not decode every block")
+        check(jam_dec[-1] == cli_batches(words, per, cards, lambda w: w > 0),
+              "K10 did not run once a batch of the decode")
         print(f"fused -m3 -f1 -S4 (JAM): {BLOCK} bytes of log records -> "
               f"{len(dev_bytes)} in {jam_s:.3f} s, byte-identical to the "
               f"oracle ({host_s:.1f} s); decoded in {jam_dec_s:.3f} s, "
@@ -1647,16 +2162,18 @@ def main() -> int:
         for label, flags in (("-m0", []), ("-m1", ["-m1"])):
             marc = os.path.join(tmp, f"mixed8{label}.jam")
             host_s = oracle_s[label] = oracle(msrc, marc, flags)
-            nblk = count_blocks(dd.framing, read(marc))
+            nblk = count_blocks(framing, read(marc))
             m_s, m_launches = decode_cli(cli, dec_kernels + [lpx.KERNEL],
                                          marc, back)
             check(read(back) == mixed.tobytes(),
                   f"the {label} archive did not decode")
-            check(m_launches[3] == 2 * nblk and m_launches[-1] == nblk,
+            words = span_words(framing, read(marc))
+            check(m_launches[3] == 2 * nblk and m_launches[-1] == cli_batches(
+                words, per, cards, lambda w: w > 0),
                   f"{label}: lz_parse {m_launches[3]}, lpx_walk "
                   f"{m_launches[-1]} launches for {nblk} blocks")
             with open(marc, "rb") as f:
-                h, pay_m = dd.framing.read_block(f)
+                h, pay_m = framing.read_block(f)
             calls = []
             with caught(device_stages, "lz_parse", calls):
                 dd.decode_block_device(pay_m, h.crc, h.blocksize, h.units,
@@ -1668,7 +2185,8 @@ def main() -> int:
                                   device_stages.lz_parse(*calls[0]))
             print(f"default flags {label}: oracle {host_s:.1f} s; `cli d` "
                   f"{m_s:.3f} s, exact; lz_parse {m_launches[3]} launches "
-                  f"(2 a block), lpx_walk {m_launches[-1]}; the lz stage: "
+                  f"(2 a block), lpx_walk {m_launches[-1]} (once a batch); "
+                  f"the lz stage: "
                   f"{k11[label]['tokens']} tokens over "
                   f"{k11[label]['stream_bytes']} B, K11 "
                   f"{k11[label]['ms']:.4f} ms "
@@ -1704,6 +2222,17 @@ def main() -> int:
             cli, engines, pipeline, dd, all_kernels, tmp, msrc, mixed, dev)
         for name, runs in engine_launches.items():
             rows[name]["engine_launches"] = runs
+
+        # ---- 23. batched blocks, two workers on one card, the flagship
+        # step, the dry run, the compute walls and the trace
+        batch_launches, batch23 = batch_phase(
+            cli, dd, de, device_stages, encode_stages, lpx, rans, rank,
+            rans_encode, sharding, metrics, dryrun, all_kernels, tmp, src,
+            arc, os.path.join(tmp, "textlike32.f1.host.jt3"), want, per,
+            cards, dev)
+        for name, runs in batch_launches.items():
+            rows[name]["batch_launches"] = runs
+        print("phase23 " + json.dumps(batch23))
 
     # ---- 21. golden fixtures: all eight archives
     import io

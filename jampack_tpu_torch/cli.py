@@ -11,10 +11,13 @@ JTX/JT3 stream parameters -u# anchor units, -c# ANS chunk KB, -L# rANS
 lanes, -S# Lpx spans (0 skips the stage), -Sa the per-block Lpx gate.
 
 --engine (--engine=E or --engine E):
-  fused   the default: the whole block chain on the GPU, one block at a
-          time (runtime/device_decode.py, device_encode.py).  d reads every
-          archive; c takes -m0..-m3 with -f0/-f1/-f2 (the LZ match finders
-          of -m0/-m1/-m2 on the host) and refuses -f3, which runs on
+  fused   the default: the whole block chain on the GPU, the archive
+          spread over the cards (runtime/sharding.py): a window of
+          (cards x batch) blocks at a time, each card's run of it in
+          batches (runtime/device_decode.py, device_encode.py), written in
+          file order as it finishes.  d reads every archive; c takes
+          -m0..-m3 with -f0/-f1/-f2 (the LZ match finders of -m0/-m1/-m2
+          on the host, a block at a time) and refuses -f3, which runs on
           --engine gpu.  With no flag c writes the reference's default JAM
           archive (-m0 -f1 -S4).
   gpu     the per-stage engine on the GPU (the JAX package's tpu engine):
@@ -26,9 +29,10 @@ lanes, -S# Lpx spans (0 skips the stage), -Sa the per-block Lpx gate.
 The stage engines (gpu, hybrid, native, numpy) run blocks on -t threads
 (default: every core, clamped by host memory) with the reference's
 read-ahead window.  --engine tpu is refused: its counterpart here is gpu.
---device picks the card (cuda, the default) for fused, gpu and hybrid;
-there is no fallback to the CPU: --device cpu runs the plain PyTorch
-versions of the kernels and exists for tests.
+--device picks the card for fused, gpu and hybrid: cuda, the default, is
+every card of the host for fused and the current card for the others;
+cuda:N is that card.  There is no fallback to the CPU: --device cpu runs
+the plain PyTorch versions of the kernels and exists for tests.
 """
 
 import sys
@@ -40,8 +44,6 @@ import numpy as np
 
 from .format import framing
 from .format.constants import DEFAULT_BLOCKSIZE, MAX_BLOCKSIZE, MIN_BLOCKSIZE
-from .runtime.device_decode import decompress_stream_device
-from .runtime.device_encode import compress_stream_device
 from .runtime.options import (
     Options,
     validate_lpx_spans,
@@ -227,20 +229,41 @@ def _summary(raw: int, comp: int, dt: float, label: str) -> None:
           f"@ {rate:.2f} MB/s in {dt:.2f}s [{label}]")
 
 
+def _mesh_label(mesh) -> str:
+    import torch
+
+    names = []
+    for dev in mesh:
+        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                else str(dev))
+        if name not in names:
+            names.append(name)
+    return f"fused x{len(mesh)}: {', '.join(names)}"
+
+
 def _run_fused(mode, inp, outp, opt, device) -> None:
+    """c and d through runtime/sharding.py across the mesh --device names
+    (cuda: every card of this host; cuda:N: that card alone; cpu: the
+    plain versions), a window of (cards x batch) blocks at a time, written
+    as it finishes."""
+    from .runtime.sharding import (decode_archive_to, encode_archive_sharded,
+                                   make_mesh)
+
     if mode == "c" and opt.filters not in (0, 1, 2):
         raise SystemExit(f"--engine fused: -f{opt.filters}: the fused "
                          f"encode runs -f0/-f1/-f2; the -f3 device filter "
                          f"search runs on --engine gpu")
+    mesh = make_mesh() if device == "cuda" else make_mesh([device])
     start = time.time()
+    progress = _Progress("compressing" if mode == "c" else "decompressing")
     with open(inp, "rb") as fin, open(outp, "wb") as fout:
         if mode == "c":
-            raw, comp = compress_stream_device(fin, fout, opt, device)
-            label = f"device encode: {device}"
+            raw, comp = encode_archive_sharded(fin, fout, opt, mesh,
+                                               progress=progress.update)
         else:
-            comp, raw = decompress_stream_device(fin, fout, device)
-            label = f"device decode: {device}"
-    _summary(raw, comp, time.time() - start, label)
+            raw, comp = decode_archive_to(fin, fout, mesh, progress.update)
+    progress.done()
+    _summary(raw, comp, time.time() - start, _mesh_label(mesh))
 
 
 def _encode_blocks(fin, fout, opt, engine, workers, progress):

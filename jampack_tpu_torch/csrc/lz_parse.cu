@@ -376,7 +376,8 @@ __global__ void __launch_bounds__(kScan) lz_finish(
 }
 
 // Blocks for a grid-stride pass over len items: up to 16 an SM.  The SM
-// count is read once (the kernels launch on one device).
+// count is read once, from the first card that launches (the cards of one
+// host are alike).
 int grid_for(int64_t len) {
   static int sms = 0;
   if (sms == 0) {

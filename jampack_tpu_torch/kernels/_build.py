@@ -53,6 +53,7 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "jt_rank_decode_staged": [_I],
     "jt_rank_encode_staged": [_I64],
+    "jt_set_device": [_I],
 }
 
 
@@ -172,7 +173,18 @@ class Kernel:
         self.launches = 0
 
     def launch(self, *args) -> None:
+        """Enqueue the kernel.  The stream argument (stream_of) names the
+        card: the library's current device is set to it first, in this
+        host thread, since the library's CUDA runtime keeps its own."""
         lib = load()
+        for arg in args:
+            if isinstance(arg, Stream):
+                err = lib.jt_set_device(arg.device)
+                if err != 0:
+                    raise RuntimeError(
+                        f"{self.name}: cannot select cuda:{arg.device}: "
+                        f"CUDA error {err} "
+                        f"({lib.jt_error_string(err).decode()})")
         err = getattr(lib, self.symbol)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err} "
@@ -188,12 +200,22 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on the tensor's device.  The library's own
-    CUDA runtime launches on its current device, device 0, so tensors on
-    another card are refused rather than launched on the wrong one."""
+class Stream(ctypes.c_void_p):
+    """A CUDA stream handle for a ctypes argument, with the index of its
+    card in `device`."""
+
+
+def stream_of(t) -> Stream:
+    """PyTorch's current stream on the tensor's card, carrying the card's
+    index: Kernel.launch makes that card the library's current device
+    before it enqueues.  A tensor on an index this machine lacks raises."""
     import torch
 
-    if t.device.index not in (None, 0):
-        raise ValueError("the kernels launch on cuda:0 only")
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    index = t.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if not 0 <= index < torch.cuda.device_count():
+        raise ValueError(f"no CUDA device cuda:{index} on this machine")
+    stream = Stream(torch.cuda.current_stream(index).cuda_stream)
+    stream.device = index
+    return stream

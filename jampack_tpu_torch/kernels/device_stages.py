@@ -31,7 +31,7 @@ from ..format.varint import CONSTANTS as _VARINT_CONSTANTS
 from ._build import Kernel, ptr, stream_of
 from .ibwt import chase, combined_map
 from .lpc import lpc
-from .lpx import lpx_dyn
+from .lpx import lpx_blocks
 from .rank import rank_decode
 from .rans import decode_lanes_wide
 
@@ -631,30 +631,59 @@ def ibwt_dyn(buf: torch.Tensor, total: int, units: int):
 def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
                       units: int, out_cap: int, max_tokens: int,
                       lpx_spans: int = 0, times: dict = None):
-    """The whole per-block decode chain on payload's device:
+    """decode_blocks_core on one block: returns (out (n,) uint8, n, ok)."""
+    outs, ns, oks = decode_blocks_core(payload, [0, payload.numel()], [meta],
+                                       lanes, units, out_cap, [max_tokens],
+                                       lpx_spans, times)
+    return outs[0], ns[0], oks[0]
+
+
+def decode_blocks_core(payload, offsets, metas, lanes: int, units: int,
+                       out_cap: int, max_tokens, lpx_spans: int = 0,
+                       times: dict = None):
+    """The whole decode chain over B blocks of one span word, on their
+    device:
 
         wide-interleaved rANS -> RLE0 -> SRC rank -> chunk concat
         -> inverse BWT -> LZ77 (configured mode) -> Lpx (lpx_spans > 0)
         -> filters -> LZ77 (dedupe)
 
-    payload: (P,) uint8; meta: device_decode.block_meta's dict (chain
-    starts/rlens; per-chunk olens/rlens/freqs).  out_cap and max_tokens
-    bound the LZ and filter stages as in the JAX chain.  With a dict
-    `times`, each stage is synchronized and its wall seconds recorded.
-    Returns (out (n,) uint8, n, ok bool).
-    """
+    payload: the B payloads end to end, one (P,) uint8 tensor on the
+    blocks' device, block i at offsets[i]:offsets[i + 1]; metas: their
+    device_decode.block_meta dicts (chain starts/rlens; per-chunk
+    olens/rlens/freqs); max_tokens: the LZ token slots, one int for every
+    block or one a block.  out_cap bounds the LZ and filter stages as in
+    the JAX chain.
+
+    The stages that walk few chains a block (8 on a JAM block, 4 Lpx
+    spans) run once for the batch, so that the blocks' walks share the
+    card: every block's chains in one K1 launch (chain starts shifted by
+    each payload's offset), RLE0 and K2 over every
+    chunk row, and every block's Lpx spans in one K10 launch.  The concat,
+    the inverse BWT, both LZ parses (a stream's walk is its own) and the
+    filters run block by block.  With a dict `times`, each stage is
+    synchronized on the calling thread's stream and its wall seconds added
+    under its name (a batched stage once for the batch).  Returns (outs,
+    ns, oks): per block its (n,) uint8 output, n and ok, from one status
+    fetch for the batch.  A block without chunks is not valid (every
+    block carries its BWT anchors): its ok is False."""
+    B = len(metas)
     dev = payload.device
-    olens_np = np.asarray(meta["chunk_olens"], np.int64)
-    C = olens_np.size
-    if C == 0:  # every valid block carries at least its BWT anchors
-        return torch.zeros(0, dtype=torch.uint8, device=dev), 0, False
+    if np.ndim(max_tokens) == 0:
+        max_tokens = [int(max_tokens)] * B
+    outs = [torch.zeros(0, dtype=torch.uint8, device=dev)] * B
+    ns, oks = [0] * B, [False] * B
+    live = [i for i in range(B) if np.size(metas[i]["chunk_olens"]) > 0]
+    if not live:
+        return outs, ns, oks
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
     t0 = time.perf_counter()
 
     def mark(name):
         nonlocal t0
         if times is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if stream is not None:
+                stream.synchronize()
             now = time.perf_counter()
             times[name] = times.get(name, 0.0) + now - t0
             t0 = now
@@ -662,14 +691,27 @@ def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
     def dt(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
-    starts, rlens = dt(meta["starts"]), dt(meta["rlens"])
-    olens, crlens = dt(olens_np), dt(meta["chunk_rlens"])
-    freqs = dt(meta["freqs"])
-    rmax = max(int(np.max(meta["rlens"])), 1)
+    ms = [metas[i] for i in live]
+    if payload.numel() >= 2**31:
+        raise ValueError("a decode batch's payloads hold 2^31 bytes or more")
+    pay_offs = [int(offsets[i]) for i in live]
+    chain_offs = np.cumsum([0] + [np.size(m["starts"]) for m in ms])
+    chunk_offs = np.cumsum([0] + [np.size(m["chunk_olens"]) for m in ms])
+    starts_np = np.concatenate([np.asarray(m["starts"], np.int64) + o
+                                for m, o in zip(ms, pay_offs)])
+    rlens_np = np.concatenate([m["rlens"] for m in ms])
+    olens_np = np.concatenate([m["chunk_olens"] for m in ms]).astype(np.int64)
+    C = olens_np.size
+    starts, rlens = dt(starts_np), dt(rlens_np)
+    olens = dt(olens_np)
+    crlens = dt(np.concatenate([m["chunk_rlens"] for m in ms]))
+    freqs = dt(np.concatenate([np.asarray(m["freqs"]).reshape(-1, 256)
+                               for m in ms]))
+    rmax = max(int(np.max(rlens_np)), 1)
     ocap = max(int(olens_np.max()), 1)
     mark("h2d")
 
-    # 1+2. entropy chains, emitted straight into per-chunk rows
+    # 1+2. entropy chains of every block, emitted straight into chunk rows
     if lanes >= 2:
         chunk_syms, eok = decode_lanes_wide(payload, starts, rlens, rmax,
                                             groups=C)
@@ -682,31 +724,52 @@ def decode_block_core(payload: torch.Tensor, meta: dict, lanes: int,
     # 4. SRC rank decode
     chunk_bytes, rank_ok = rank_decode(ranks, freqs, olens, ocap)
     mark("rank")
-    # 5. concatenate chunks: a reshape when every nonempty chunk starts at
-    # c * ocap, else the valid prefix of each row in order
-    total = int(olens_np.sum())
-    base = np.cumsum(olens_np) - olens_np
-    if np.all((base == np.arange(C) * ocap) | (olens_np <= 0)):
-        stage = chunk_bytes.reshape(-1)[:total]
-    else:
-        keep = torch.arange(ocap, device=dev)[None, :] < olens[:, None]
-        stage = chunk_bytes[keep]
+    # 5. each block's chunks concatenated: a reshape when every nonempty
+    # chunk starts at c * ocap, else the valid prefix of each row in order
+    stages, totals = [], []
+    for c0, c1 in zip(chunk_offs[:-1], chunk_offs[1:]):
+        ol = olens_np[c0:c1]
+        total = int(ol.sum())
+        base = np.cumsum(ol) - ol
+        rows = chunk_bytes[c0:c1]
+        if np.all((base == np.arange(c1 - c0) * ocap) | (ol <= 0)):
+            stages.append(rows.reshape(-1)[:total])
+        else:
+            keep = (torch.arange(ocap, device=dev)[None, :]
+                    < olens[c0:c1, None])
+            stages.append(rows[keep])
+        totals.append(total)
     mark("concat")
-    # 6..10. inverse BWT, LZ (mode), Lpx, filters, LZ (dedupe)
-    stage, n, ib_ok = ibwt_dyn(stage, total, units)
-    mark("ibwt")
-    stage, n, lz1_ok = lz_decode_dyn(stage, n, max_tokens, out_cap)
-    mark("lz")
+    # 6..7. inverse BWT and LZ (mode), block by block
+    ns_live, flags, lz_oks = [], [], []
+    for j, i in enumerate(live):
+        stage, n, ib_ok = ibwt_dyn(stages[j], totals[j], units)
+        mark("ibwt")
+        stage, n, lz1_ok = lz_decode_dyn(stage, n, max_tokens[i], out_cap)
+        mark("lz")
+        stages[j] = stage
+        ns_live.append(n)
+        flags.append(ib_ok)
+        lz_oks.append(lz1_ok)
+    # 8. Lpx, every block's spans in one launch (spans 0: the encoder
+    # skipped the stage, the JT3 span word)
     if lpx_spans > 0:
-        # spans 0: the encoder skipped the stage (the JT3 span word)
-        stage = lpx_dyn(stage, n, lpx_spans, decode=True)
+        stages = lpx_blocks(stages, ns_live, lpx_spans, decode=True)
         mark("lpx")
-    stage, n, f_ok = filters_decode_dyn(stage, n, out_cap)
-    mark("filters")
-    out, n, lz0_ok = lz_decode_dyn(stage, n, max_tokens, out_cap)
-    mark("lz_dedupe")
-    ok = ((eok | (rlens < 0)).all() & (rle_ok | (olens <= 0)).all()
-          & rank_ok.all() & ib_ok & f_ok)
-    ok = bool(ok) and lz1_ok and lz0_ok
+    # 9..10. filters and LZ (dedupe), block by block
+    for j, i in enumerate(live):
+        stage, n, f_ok = filters_decode_dyn(stages[j], ns_live[j], out_cap)
+        mark("filters")
+        outs[i], ns[i], lz0_ok = lz_decode_dyn(stage, n, max_tokens[i],
+                                               out_cap)
+        mark("lz_dedupe")
+        l0, l1 = chain_offs[j], chain_offs[j + 1]
+        c0, c1 = chunk_offs[j], chunk_offs[j + 1]
+        flags[j] = ((eok[l0:l1] | (rlens[l0:l1] < 0)).all()
+                    & (rle_ok[c0:c1] | (olens[c0:c1] <= 0)).all()
+                    & rank_ok[c0:c1].all() & flags[j] & f_ok)
+        lz_oks[j] = lz_oks[j] and lz0_ok
+    for i, flag, lz_ok in zip(live, torch.stack(flags).tolist(), lz_oks):
+        oks[i] = bool(flag) and lz_ok
     mark("status")
-    return out, n, ok
+    return outs, ns, oks

@@ -31,7 +31,7 @@ from ..stages.lz77 import write_token
 
 from ._build import Kernel, load, ptr, stream_of
 from .lpc import lpc
-from .lpx import lpx_dyn
+from .lpx import lpx_blocks
 from .rans_encode import model_pairs_wide, rans_reverse_encode_wide
 from .sa import forward_bwt
 
@@ -286,18 +286,21 @@ def deal(syms: torch.Tensor, rlens: torch.Tensor, lanes: int):
 
 
 class Marks:
-    """One clock over a block's stages: mark(name) synchronizes the device
-    and adds the wall seconds since the last mark to times[name].  With
-    times None nothing is timed."""
+    """One clock over a block's stages: mark(name) synchronizes the calling
+    thread's stream on the device (not the whole card, where other workers
+    run) and adds the wall seconds since the last mark to times[name].
+    With times None nothing is timed."""
 
     def __init__(self, dev, times):
-        self.dev, self.times, self.t0 = dev, times, time.perf_counter()
+        self.times, self.t0 = times, time.perf_counter()
+        self.stream = (torch.cuda.current_stream(dev)
+                       if dev.type == "cuda" else None)
 
     def __call__(self, name):
         if self.times is None:
             return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+        if self.stream is not None:
+            self.stream.synchronize()
         now = time.perf_counter()
         self.times[name] = self.times.get(name, 0.0) + now - self.t0
         self.t0 = now
@@ -310,7 +313,7 @@ def _no_mark(name):
 def encode_front(s1: torch.Tensor, fconfigs=None, *, lpx_spans: int = 0,
                  lpx_auto: bool = False, mark=_no_mark):
     """Stages 2 and 3 of a block on s1's device: filters, then Lpx
-    (encode_front_core).
+    (encode_front_core); encode_front_blocks on one block.
 
     s1: (n1,) uint8, any stage-1 stream, n1 >= 1.  fconfigs: None for -f0,
     else the (F, 2) int32 (type, width) picks of the filter search over
@@ -320,18 +323,32 @@ def encode_front(s1: torch.Tensor, fconfigs=None, *, lpx_spans: int = 0,
     ceil(n1 / 65,536); lpx_kept says whether the block carries the Lpx
     stage (its span word is lpx_spans, else 0).  mark: a Marks, called
     after each stage."""
-    s2 = filter_stage(s1, fconfigs)
+    s2s, kept = encode_front_blocks([s1], [fconfigs], lpx_spans=lpx_spans,
+                                    lpx_auto=lpx_auto, mark=mark)
+    return s2s[0], kept[0]
+
+
+def encode_front_blocks(s1s, fconfigs, *, lpx_spans: int = 0,
+                        lpx_auto: bool = False, mark=_no_mark):
+    """encode_front over B blocks' stage-1 streams on one device: the
+    filters block by block (fconfigs: each block's picks or None), then
+    every block's Lpx spans in one K10 launch, and with lpx_auto one fetch
+    of the zero counts the gates compare.  Returns (the B stage-2 streams,
+    the B lpx_kept flags)."""
+    s2s = [filter_stage(s1, fc) for s1, fc in zip(s1s, fconfigs)]
     mark("filters")
-    kept = lpx_spans > 0
-    if kept:
-        s2l = lpx_dyn(s2, s2.numel(), lpx_spans, decode=False)
+    kept = [lpx_spans > 0] * len(s2s)
+    if lpx_spans > 0:
+        s2ls = lpx_blocks(s2s, [s2.numel() for s2 in s2s], lpx_spans,
+                          decode=False)
         if lpx_auto:
-            zeros = torch.stack([(s2 == 0).sum(), (s2l == 0).sum()]).tolist()
-            kept = gain_gate(zeros[0], zeros[1], s2.numel())
-        if kept:
-            s2 = s2l
+            zeros = torch.stack([torch.stack([(a == 0).sum(), (b == 0).sum()])
+                                 for a, b in zip(s2s, s2ls)]).tolist()
+            kept = [gain_gate(z0, z1, s2.numel())
+                    for (z0, z1), s2 in zip(zeros, s2s)]
+        s2s = [b if k else a for a, b, k in zip(s2s, s2ls, kept)]
         mark("lpx")
-    return s2, kept
+    return s2s, kept
 
 
 def encode_back(s3: torch.Tensor, *, units: int, chunk: int, lanes: int,
@@ -339,7 +356,7 @@ def encode_back(s3: torch.Tensor, *, units: int, chunk: int, lanes: int,
     """Stages 5 and 6 of a block on s3's device: the forward BWT with its
     anchors, then per chunk SRC rank (K6) -> RLE0 -> lane deal, per chain
     the model pass (K4) and the reverse interleaved rANS (K5)
-    (encode_back_core).
+    (encode_back_core); encode_back_blocks on one block.
 
     s3: (n3,) uint8, the stage-4 LZ stream, any n3 >= 0.  Returns (bufs
     (NL, 4*max_rlen+16) uint8, ptrs (NL,) int32, oks (NL,) bool, freqs (C,
@@ -347,11 +364,27 @@ def encode_back(s3: torch.Tensor, *, units: int, chunk: int, lanes: int,
     units) / chunk) chunks, NL = C * max(lanes, 1) chains in chunk-major
     order, chain payload l = bufs[l, ptrs[l]:].  mark as in
     encode_front."""
-    # forward BWT: trailing n3 % units bytes raw, anchors appended
-    s4 = forward_bwt(s3, units)
+    return encode_back_blocks([s3], units=units, chunk=chunk, lanes=lanes,
+                              mark=mark)[0]
+
+
+def encode_back_blocks(s3s, *, units: int, chunk: int, lanes: int,
+                       mark=_no_mark):
+    """encode_back over B blocks' stage-4 streams on one device: the
+    forward BWT block by block, then the chunk rows of every block in one
+    K6 launch, one RLE0 pass and one lane deal, and their chains in one K4
+    and one K5 launch.  Returns encode_back's tuple for each block."""
+    eff = max(lanes, 1)
+    s4s = [forward_bwt(s3, units) for s3 in s3s]
     mark("bwt")
-    # entropy, every chunk at once: rank -> RLE0 -> lane deal
-    rows, olens = chunk_rows(s4, chunk)
+    # entropy, every chunk of every block at once: rank -> RLE0 -> deal
+    cut = [chunk_rows(s4, chunk) for s4 in s4s]
+    offs = np.cumsum([0] + [r.shape[0] for r, _ in cut]).tolist()
+    if len(cut) == 1:
+        rows, olens = cut[0]
+    else:
+        rows = torch.cat([r for r, _ in cut])
+        olens = torch.cat([o for _, o in cut])
     ranks, freqs = rank_encode(rows, olens)
     mark("rank")
     syms, rlens = rle0_encode(ranks, olens)
@@ -363,4 +396,6 @@ def encode_back(s3: torch.Tensor, *, units: int, chunk: int, lanes: int,
     mark("model")
     bufs, ptrs = rans_reverse_encode_wide(lows, fqs, crlens, max_rlen)
     mark("rans")
-    return bufs, ptrs, oks, freqs, rlens
+    return [(bufs[a * eff:b * eff], ptrs[a * eff:b * eff],
+             oks[a * eff:b * eff], freqs[a:b], rlens[a:b])
+            for a, b in zip(offs[:-1], offs[1:])]

@@ -24,6 +24,7 @@ lpx_walk launches K10 (csrc/lpx_walk.cu) for a CUDA tensor and runs
 lpx_walk_plain for a CPU tensor.
 """
 
+import numpy as np
 import torch
 
 from ..format.constants import (
@@ -240,8 +241,26 @@ def lpx_dyn(buf: torch.Tensor, n: int, spans: int, decode: bool):
     """The Lpx stage over the first n bytes of buf, cut into spans by the
     format's split (any n >= 0, spans >= 1, the tiny n < spans and the
     splits of more than spans + 1 pieces included).  Returns (n,) uint8."""
-    sp = torch.tensor(_split_spans(n, spans), dtype=torch.int32).reshape(-1, 2)
+    return lpx_blocks([buf], [n], spans, decode)[0]
+
+
+def lpx_blocks(bufs, ns, spans: int, decode: bool):
+    """The Lpx stage over several blocks' stages in one launch of K10: the
+    first ns[i] bytes of bufs[i] (tensors on one device), each cut into
+    spans by the format's split, laid end to end, every span of every
+    block a walk of its own.  Returns the list of (ns[i],) uint8 outputs.
+    K10's span offsets are int32, so the blocks' bytes together stay under
+    2^31."""
+    offs = np.cumsum([0, *ns]).tolist()
+    if offs[-1] >= 2**31:
+        raise ValueError("an Lpx batch holds 2^31 bytes or more")
+    flat = (bufs[0][:ns[0]].contiguous() if len(bufs) == 1
+            else torch.cat([b[:n] for b, n in zip(bufs, ns)]))
+    sp = torch.tensor([(s + o, ln) for n, o in zip(ns, offs)
+                       for s, ln in _split_spans(n, spans)],
+                      dtype=torch.int32).reshape(-1, 2)
     max_len = int(sp[:, 1].max()) if sp.numel() else 0
-    sp = sp.to(buf.device)
-    return lpx_walk(buf[:n].contiguous(), sp[:, 0].contiguous(),
-                    sp[:, 1].contiguous(), decode, max_len)
+    sp = sp.to(flat.device)
+    out = lpx_walk(flat, sp[:, 0].contiguous(), sp[:, 1].contiguous(), decode,
+                   max_len)
+    return [out[a:b] for a, b in zip(offs[:-1], offs[1:])]

@@ -83,9 +83,13 @@ if BANK_INIT.shape != (256,) or int(QOFF[-1]) != 253:
 def to_device(device) -> dict:
     """The tables the model passes read, as int tensors on `device`: the
     plain versions and the CUDA kernels take the same ones.  Made once a
-    device (a launch would otherwise wait on five small copies); callers
-    only read them."""
-    return _tables(str(torch.device(device)))
+    device (a launch would otherwise wait on five small copies), keyed by
+    the card's index: "cuda" alone names whichever card is current in the
+    calling thread.  Callers only read them."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _tables(str(dev))
 
 
 @functools.lru_cache(maxsize=None)

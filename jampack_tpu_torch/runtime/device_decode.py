@@ -2,7 +2,8 @@
 
 The host parses only format metadata (chunk headers, lane tables:
 block_meta below, the port's copy of jampack_tpu/runtime/device_decode.py's);
-every O(n) stage runs on the device (kernels/device_stages.decode_block_core).
+every O(n) stage runs on the device (kernels/device_stages.
+decode_blocks_core), over a batch of blocks where the caller gives one.
 The CRC is checked on the host after the fetch, as the reference checks
 after its chain (jampack.cpp:56-57).
 
@@ -16,10 +17,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..format import framing
 from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
-from ..kernels.device_stages import decode_block_core
+from ..kernels.device_stages import decode_blocks_core
 from ..stages.ans import lane_rlen, read_chunk_header, read_lane_table
 
 
@@ -108,51 +108,87 @@ def decode_block_device(payload: bytes, crc: int, blocksize: int,
                         units: int = 120, lanes: int = 0,
                         lpx_spans: int = 4, device="cuda",
                         times: dict = None) -> np.ndarray:
-    """Decode one framed block's payload on `device` and CRC-check it.
-    Same contract as jampack_tpu.runtime.device_decode.decode_block_device.
-    With a dict `times`, per-stage wall seconds are added to it (device
-    stages synchronized; host_meta, d2h and host_crc around them)."""
+    """Decode one framed block's payload on `device` and CRC-check it:
+    decode_blocks_device on one block.  Same contract as
+    jampack_tpu.runtime.device_decode.decode_block_device."""
     if np.ndim(lpx_spans) != 0:
         raise TypeError("one block takes one lpx_spans value")
+    return decode_blocks_device([payload], [crc], blocksize, units, lanes,
+                                int(lpx_spans), device, times)[0]
+
+
+def decode_blocks_device(payloads, crcs, blocksize: int, units: int = 120,
+                         lanes: int = 0, lpx_spans=4, device="cuda",
+                         times: dict = None, _idx_map=None):
+    """Decode B framed blocks on one card and CRC-check each on the host;
+    returns their arrays in block order.  The counterpart of
+    jampack_tpu.runtime.device_decode.decode_blocks_device: units and
+    lanes are shared; lpx_spans is an int or one span word a block (-Sa
+    archives mix 0 and S), and each span-word group runs as one batch of
+    kernels/device_stages.decode_blocks_core (its chains in one K1 launch,
+    its chunk rows in one K2 launch, its Lpx spans in one K10 launch).  A
+    corrupt block raises ValueError naming its index in the caller's list
+    (_idx_map: the caller's indices of these blocks); there is no host
+    route.  The caller sizes the batch: its payloads together stay under
+    2^31 bytes (K1's and K10's offsets are int32), and its working set
+    within the card's memory (sharding.batch_blocks).
+
+    With a dict `times`, per-stage wall seconds are added to it (device
+    stages synchronized on the calling thread's stream, a batched stage
+    once for its batch; host_meta, d2h and host_crc around them)."""
     dev = resolve(device)
-    t0 = time.perf_counter()
-    meta = block_meta(payload, lanes)
-    shapes = plan_shapes([meta], [len(payload)], blocksize, lanes)
-    pay = torch.from_numpy(np.frombuffer(payload, np.uint8).copy()).to(dev)
-    t1 = time.perf_counter()
-    max_tokens = token_slots(int(meta["chunk_olens"].sum()),
-                             shapes["out_cap"])
-    out, n, ok = decode_block_core(pay, meta, lanes, units, shapes["out_cap"],
-                                   max_tokens, int(lpx_spans), times)
-    if not ok:
-        raise ValueError("device decode failed (corrupt stream)")
-    t2 = time.perf_counter()
-    data = out[:n].cpu().numpy()
-    t3 = time.perf_counter()
-    if integrity_check(data) != (crc & 0xFFFFFFFF):
-        raise ValueError("detected corrupt block")
-    if times is not None:
-        for key, dt in (("host_meta", t1 - t0), ("d2h", t3 - t2),
-                        ("host_crc", time.perf_counter() - t3)):
-            times[key] = times.get(key, 0.0) + dt
-    return data
+    B = len(payloads)
+    spans = ([int(lpx_spans)] * B if np.ndim(lpx_spans) == 0
+             else [int(s) for s in lpx_spans])
+    if len(spans) != B:
+        raise ValueError("lpx_spans sequence length != block count")
+    idx_map = list(range(B)) if _idx_map is None else list(_idx_map)
+    results = [None] * B
+    for word in sorted(set(spans)):
+        group = [i for i in range(B) if spans[i] == word]
+        t0 = time.perf_counter()
+        metas = []
+        for i in group:
+            try:
+                metas.append(block_meta(payloads[i], lanes))
+            except ValueError as e:
+                raise ValueError(f"corrupt block {idx_map[i]}: {e}") from e
+        shapes = plan_shapes(metas, [len(payloads[i]) for i in group],
+                             blocksize, lanes)
+        host = np.frombuffer(b"".join(payloads[i] for i in group), np.uint8)
+        flat = torch.from_numpy(host.copy()).to(dev)
+        offs = np.cumsum([0] + [len(payloads[i]) for i in group])
+        tokens = [token_slots(int(m["chunk_olens"].sum()), shapes["out_cap"])
+                  for m in metas]
+        t1 = time.perf_counter()
+        outs, ns, oks = decode_blocks_core(flat, offs, metas, lanes, units,
+                                           shapes["out_cap"], tokens, word,
+                                           times)
+        t2 = time.perf_counter()
+        crc_s = 0.0
+        for j, i in enumerate(group):
+            if not oks[j]:
+                raise ValueError(f"device decode failed (corrupt stream) at "
+                                 f"block {idx_map[i]}")
+            data = outs[j][:ns[j]].cpu().numpy()
+            t3 = time.perf_counter()
+            if integrity_check(data) != (crcs[i] & 0xFFFFFFFF):
+                raise ValueError(f"detected corrupt block {idx_map[i]}")
+            crc_s += time.perf_counter() - t3
+            results[i] = data
+        if times is not None:
+            for key, dt in (("host_meta", t1 - t0),
+                            ("d2h", time.perf_counter() - t2 - crc_s),
+                            ("host_crc", crc_s)):
+                times[key] = times.get(key, 0.0) + dt
+    return results
 
 
 def decompress_stream_device(inp, out, device="cuda"):
-    """Decode a whole archive from file object `inp` into `out`, one block
-    at a time on `device`.  Returns (compressed bytes, raw bytes)."""
-    dev = resolve(device)
-    raw = comp = 0
-    while True:
-        rec = framing.read_block(inp)
-        if rec is None:
-            break
-        header, payload = rec
-        data = decode_block_device(payload, header.crc, header.blocksize,
-                                   header.units, header.lanes,
-                                   header.lpx_spans, dev)
-        out.write(data.tobytes())
-        comp += header.csize + framing.header_size(
-            header.units, header.lanes, header.lpx_spans)
-        raw += data.size
+    """Decode a whole archive from file object `inp` into `out` on
+    `device` (sharding.decode_archive_to on a mesh of one device).  Returns
+    (compressed bytes, raw bytes)."""
+    from .sharding import decode_archive_to
+
+    raw, comp = decode_archive_to(inp, out, [device])
     return comp, raw

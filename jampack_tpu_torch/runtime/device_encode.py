@@ -7,7 +7,9 @@ runs the LZ match finders of -m0/-m1/-m2 (serial hash-chain walks, as in
 the JAX package's encode_block_device_lz; in the store configuration -m3
 both LZ stages are a framing the device writes) and splices format
 metadata (chunk headers, lane tables) around the device-made chain
-payloads, which are compacted on the device and fetched once.
+payloads, which are compacted on the device and fetched once.  Several
+same-length -m3 blocks encode in one pass (encode_blocks_device: their
+Lpx spans, chunk rows and chains in one launch a kernel).
 
 Supported configuration: match_finder 0, 1, 2 or 3, filters 0, 1 or 2 (the
 -f1/-f2 config search runs on the device, kernels/filters_search.py), any
@@ -23,7 +25,6 @@ and asking for CUDA without a card raises RuntimeError.
 import numpy as np
 import torch
 
-from ..format import framing
 from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
 from ..format.varint import encode_leb128
@@ -37,7 +38,9 @@ from ..kernels.encode_stages import (
     Marks,
     ceil_div,
     encode_back,
+    encode_back_blocks,
     encode_front,
+    encode_front_blocks,
 )
 from ..kernels.filters_search import pick_f1_configs, pick_f2_configs
 
@@ -74,22 +77,22 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
 
     The LZ stages follow compress_block_ex's rule: under -m3 (store) both
     are the store framing, one end token ahead of the bytes, written on the
-    device.  -m0/-m1/-m2 run the LZ match finders on the host around the
-    device front and back, as jampack_tpu's encode_block_device_lz does:
-    the dedupe pre-pass, the h2d of its stream, the filter search and
-    encode_front, one d2h of the stage-2 stream, the configured finder on
-    it, the h2d of its stream and encode_back.
+    device (encode_blocks_device on one block).  -m0/-m1/-m2 run the LZ
+    match finders on the host around the device front and back, as
+    jampack_tpu's encode_block_device_lz does: the dedupe pre-pass, the
+    h2d of its stream, the filter search and encode_front, one d2h of the
+    stage-2 stream, the configured finder on it, the h2d of its stream and
+    encode_back.
 
     With a dict `times`, per-stage wall seconds are added to it: host_crc,
     (-m0/-m1/-m2: lz_pre, the host dedupe pre-pass), h2d, search (the
     -f1/-f2 config search), the synchronized device stages of encode_front,
     (-m0/-m1/-m2: d2h_s2, lz, the host stage-4 finder, and h2d_s3), those
     of encode_back, then d2h and splice."""
-    if opt.filters not in (0, 1, 2):
-        raise NotImplementedError(
-            "device encode runs -f0/-f1/-f2: the -f3 device filter search "
-            "runs on the per-stage engine (runtime.engines.GpuEngine)")
+    _check_filters(opt)
     mode = validate_match_finder(int(opt.match_finder))
+    if mode == LZ_MODE_STORE:
+        return encode_blocks_device([data], opt, device, times)[0]
     dev = resolve(device)
     data = np.ascontiguousarray(np.asarray(data, dtype=np.uint8))
     units = int(opt.anchor_units)
@@ -98,33 +101,86 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     mark = Marks(dev, times)
     crc = integrity_check(data)
     mark("host_crc")
-    store = mode == LZ_MODE_STORE
-    if store:
-        tok = torch.as_tensor(END_TOKEN, device=dev)
-        s1 = torch.cat([tok, _h2d(data, dev)])
-    else:
-        s1 = NativeEngine().lz_encode(data, 0)
-        mark("lz_pre")
-        s1 = _h2d(s1, dev)
+    s1 = NativeEngine().lz_encode(data, 0)
+    mark("lz_pre")
+    s1 = _h2d(s1, dev)
     mark("h2d")
     fc = filter_configs(s1, opt.filters)
     if fc is not None:
         mark("search")
     s2, kept = encode_front(s1, fc, lpx_spans=int(opt.lpx_spans),
                             lpx_auto=bool(opt.lpx_auto), mark=mark)
-    if store:
-        s3 = torch.cat([tok, s2])
-    else:
-        s2 = s2.cpu().numpy()
-        mark("d2h_s2")
-        s3 = NativeEngine().lz_encode(s2, mode)
-        mark("lz")
-        s3 = _h2d(s3, dev)
-        mark("h2d_s3")
+    s2 = s2.cpu().numpy()
+    mark("d2h_s2")
+    s3 = NativeEngine().lz_encode(s2, mode)
+    mark("lz")
+    s3 = _h2d(s3, dev)
+    mark("h2d_s3")
     chain = encode_back(s3, units=units, chunk=chunk, lanes=lanes, mark=mark)
     payload = _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk, lanes,
                                 mark)
     return crc, payload, int(opt.lpx_spans) if kept else 0
+
+
+def encode_blocks_device(blocks, opt: Options, device="cuda",
+                         times: dict = None):
+    """Encode B same-length blocks in one pass of the device chain on one
+    card: [(crc, payload bytes, lpx_spans_used)] in block order, each
+    byte-identical to encode_block_device_ex on that block.  The
+    counterpart of jampack_tpu.runtime.device_encode.encode_blocks_device
+    (-m3 with -f0/-f1/-f2): the filter search and the filters run block by
+    block, every block's Lpx spans in one K10 launch (with opt.lpx_auto a
+    gate a block), the forward BWT block by block, then the chunk rows of
+    every block in one K6 launch and their chains in one K4 and one K5
+    launch (kernels/encode_stages.encode_front_blocks,
+    encode_back_blocks).  Unlike the JAX function, every block length and
+    every Lpx split runs on the card.  -m0/-m1/-m2 raise
+    NotImplementedError, as in JAX: their host finders run block by block
+    (encode_block_device_ex).  `times` as in encode_block_device_ex, a
+    batched stage once for the batch."""
+    _check_filters(opt)
+    if validate_match_finder(int(opt.match_finder)) != LZ_MODE_STORE:
+        raise NotImplementedError(
+            "the batched device encode runs -m3 (store); -m0/-m1/-m2 run "
+            "their host LZ finders block by block (encode_block_device_ex)")
+    blocks = [np.ascontiguousarray(np.asarray(b, dtype=np.uint8))
+              for b in blocks]
+    if not blocks:
+        return []
+    if len({b.size for b in blocks}) > 1:
+        raise NotImplementedError("batched encode needs same-length blocks")
+    dev = resolve(device)
+    units = int(opt.anchor_units)
+    chunk = min(max(int(opt.ans_chunk), 1), ANS_CHUNK_SIZE)
+    lanes = int(opt.rans_lanes)
+    mark = Marks(dev, times)
+    crcs = [integrity_check(b) for b in blocks]
+    mark("host_crc")
+    tok = torch.as_tensor(END_TOKEN, device=dev)
+    flat = _h2d(np.concatenate(blocks), dev)
+    n = blocks[0].size
+    s1s = [torch.cat([tok, flat[k * n:(k + 1) * n]])
+           for k in range(len(blocks))]
+    mark("h2d")
+    fcs = [filter_configs(s1, opt.filters) for s1 in s1s]
+    if opt.filters:
+        mark("search")
+    s2s, kept = encode_front_blocks(s1s, fcs, lpx_spans=int(opt.lpx_spans),
+                                    lpx_auto=bool(opt.lpx_auto), mark=mark)
+    s3s = [torch.cat([tok, s2]) for s2 in s2s]
+    chains = encode_back_blocks(s3s, units=units, chunk=chunk, lanes=lanes,
+                                mark=mark)
+    return [(crc, _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk,
+                                    lanes, mark),
+             int(opt.lpx_spans) if k else 0)
+            for crc, chain, s3, k in zip(crcs, chains, s3s, kept)]
+
+
+def _check_filters(opt: Options) -> None:
+    if opt.filters not in (0, 1, 2):
+        raise NotImplementedError(
+            "device encode runs -f0/-f1/-f2: the -f3 device filter search "
+            "runs on the per-stage engine (runtime.engines.GpuEngine)")
 
 
 def _h2d(a: np.ndarray, dev) -> torch.Tensor:
@@ -199,27 +255,11 @@ def splice_dense(dense, lens, freqs, rlens, n4: int, chunk: int,
 
 
 def compress_stream_device(inp, out, opt: Options, device="cuda"):
-    """Encode a whole stream from file object `inp` into `out`, one block at
-    a time on `device` — the single-device counterpart of
-    jampack_tpu.runtime.sharding.encode_archive_sharded.  Keeps the
+    """Encode a whole stream from file object `inp` into `out` on `device`
+    (sharding.encode_archive_sharded on a mesh of one device), with the
     reference's feof rule (jampack.cpp:205-214): an input of K * blocksize
-    bytes, K = 0 included, gets a trailing empty block.
-    Returns (raw bytes, compressed bytes)."""
-    dev = resolve(device)
-    raw = comp = 0
-    pending_empty = True
-    while True:
-        block = inp.read(opt.blocksize)
-        if len(block) == 0 and not pending_empty:
-            break
-        data = np.frombuffer(block, dtype=np.uint8)
-        crc, payload, spans = encode_block_device_ex(data, opt, dev)
-        framing.write_block(out, crc, payload, opt.blocksize,
-                            opt.anchor_units, opt.rans_lanes, spans)
-        raw += len(block)
-        comp += len(payload) + framing.header_size(
-            opt.anchor_units, opt.rans_lanes, spans)
-        if len(block) == 0:
-            break
-        pending_empty = len(block) == opt.blocksize
-    return raw, comp
+    bytes, K = 0 included, gets a trailing empty block.  Returns (raw
+    bytes, compressed bytes)."""
+    from .sharding import encode_archive_sharded
+
+    return encode_archive_sharded(inp, out, opt, [device])

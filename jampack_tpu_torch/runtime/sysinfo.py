@@ -6,9 +6,9 @@ The reference caches core count, available memory, and CUDA presence/VRAM
 to clamp thread counts and decide GPU offload; the CLI's plan_workers
 reads the host half, and HybridEngine gates its BWT device offload on
 `fits_on_device` the way the reference gates its CUDA path on the
-80%-of-VRAM test (format.hpp:27, bwt.cpp:102-114).  Without a card the
-device half raises: nothing here answers "no" and lets a caller run on the
-host without saying so.
+80%-of-VRAM test (format.hpp:27, bwt.cpp:102-114).  gpu_devices lists
+the cards, [] without one; without a card the memory half raises: nothing
+here answers "no" and lets a caller run on the host without saying so.
 """
 
 import os
@@ -27,9 +27,21 @@ def available_memory() -> int:
         return 1 << 32
 
 
+def gpu_devices() -> list:
+    """The accelerator inventory (the counterpart of the JAX package's
+    tpu_devices): torch.device("cuda:i") for every card of this host, []
+    without one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def device_memory(device="cuda") -> int:
-    """Total bytes of the card `device` (torch.cuda.mem_get_info); raises
-    RuntimeError when this machine has no card."""
+    """Total bytes of the card `device` (torch.cuda.mem_get_info; "cuda"
+    alone is the calling thread's current card); raises RuntimeError when
+    this machine has no card."""
     import torch
 
     from ..device import resolve

@@ -96,5 +96,5 @@ def test_cli_round_trip_on_cpu(tmp_path):
     res = subprocess.run([*cmd, "d", str(arc), str(back), "--device", "cpu"],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "device decode: cpu" in res.stdout
+    assert "[fused x1: cpu]" in res.stdout
     assert back.read_bytes() == src.read_bytes()

@@ -366,7 +366,7 @@ def test_cli_fused_encode_matches_host(tmp_path):
     assert res.returncode == 0, res.stderr
     res = _cli("c", src, dev, *flags, "--engine", "fused", "--device", "cpu")
     assert res.returncode == 0, res.stderr
-    assert "device encode: cpu" in res.stdout
+    assert "[fused x1: cpu]" in res.stdout
     assert dev.read_bytes() == host.read_bytes()
     res = _cli("c", src, dflt, *flags, "--device=cpu")
     assert res.returncode == 0, res.stderr

@@ -981,3 +981,112 @@ def test_token_dense_8mib_block_decodes_on_cuda(cuda):
                                device=cuda)
     assert device_stages.LZ_KERNEL.launches - before == 2
     assert np.array_equal(back, data)
+
+
+# ---------------------------------------------------------------------------
+# batched blocks and several cards
+
+
+def _text_block(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b" etaoinshrdlucmfwypvbgkqjxz.,\n", np.uint8)
+    return alpha[rng.integers(0, alpha.size, n)]
+
+
+BATCH_STREAMS = {
+    # JAM: 1 MiB entropy chunks, no lanes, 4 Lpx spans a block
+    "jam": dict(match_finder=3, filters=1, lpx_spans=4),
+    # JT3 (the production stream with the Lpx stage kept): 16 KiB chunks,
+    # 4 lanes, 960 anchors, 4096 spans
+    "jt3": dict(match_finder=3, filters=1, rans_lanes=4, ans_chunk=16 << 10,
+                anchor_units=960, lpx_spans=4096),
+}
+
+
+@pytest.mark.parametrize("stream", sorted(BATCH_STREAMS))
+def test_batched_encode_and_decode_equal_the_per_block_path(cuda, stream):
+    """3 x 8 MiB through encode_blocks_device and decode_blocks_device:
+    byte-equal to encode_block_device_ex / decode_block_device block by
+    block and to the input; K4, K5, K6 and K10 once for the encode batch,
+    K1, K2 and K10 once for the decode batch."""
+    from jampack_tpu_torch.runtime import device_decode as dd
+    from jampack_tpu_torch.runtime import device_encode as de
+
+    n = 8 << 20
+    opt = PortOptions(blocksize=n, **BATCH_STREAMS[stream])
+    blocks = [_text_block(n, s) for s in range(3)]
+    enc = (encode_stages.RANK_KERNEL, rans_encode.PAIRS_KERNEL,
+           rans_encode.REVERSE_KERNEL, lpx.KERNEL)
+    before = [k.launches for k in enc]
+    got = de.encode_blocks_device(blocks, opt, cuda)
+    assert [k.launches - b for k, b in zip(enc, before)] == [1, 1, 1, 1]
+    assert got == [de.encode_block_device_ex(b, opt, cuda) for b in blocks]
+    crcs = [g[0] for g in got]
+    payloads = [g[1] for g in got]
+    spans = [g[2] for g in got]
+    dec = (rans.KERNEL, rank.KERNEL, lpx.KERNEL)
+    before = [k.launches for k in dec]
+    outs = dd.decode_blocks_device(payloads, crcs, n, opt.anchor_units,
+                                   opt.rans_lanes, spans, cuda)
+    assert [k.launches - b for k, b in zip(dec, before)] == [1, 1, 1]
+    for out, block, (crc, payload, s) in zip(outs, blocks, got):
+        assert np.array_equal(out, block)
+        assert np.array_equal(out, dd.decode_block_device(
+            payload, crc, n, opt.anchor_units, opt.rans_lanes, s, cuda))
+
+
+def test_a_kernel_launches_on_every_card(cuda):
+    """K9 on each cuda:i, against its plain version (the library's current
+    device follows the tensor's card)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA devices")
+    src = torch.arange(64 * 1024, dtype=torch.int32)
+    offs = torch.randperm(64, generator=torch.Generator().manual_seed(1)).int()
+    want = block_scatter.block_scatter_plain(src, offs, 1024)
+    for i in range(count):
+        dev = torch.device("cuda", i)
+        before = block_scatter.KERNEL.launches
+        got = block_scatter.block_scatter(src.to(dev), offs.to(dev), 1024)
+        assert block_scatter.KERNEL.launches - before == 1
+        assert got.device == dev and torch.equal(got.cpu(), want)
+
+
+def test_a_missing_card_raises(cuda):
+    from jampack_tpu_torch.kernels._build import stream_of
+    from jampack_tpu_torch.runtime import sharding
+
+    missing = torch.cuda.device_count()
+
+    class Fake:
+        device = torch.device("cuda", missing)
+
+    with pytest.raises(ValueError, match=f"cuda:{missing}"):
+        stream_of(Fake())
+    with pytest.raises(ValueError, match=f"cuda:{missing}"):
+        sharding.make_mesh([f"cuda:{missing}"])
+
+
+def test_two_workers_on_one_card_decode_as_the_cli_does(cuda, tmp_path,
+                                                        monkeypatch):
+    """decode_archive_sharded on ["cuda:0", "cuda:0"] in batches of 2
+    gives the bytes `cli d` writes, and the input."""
+    from jampack_tpu_torch import cli
+    from jampack_tpu_torch.runtime import pipeline, sharding
+
+    data = np.concatenate([_text_block(1 << 20, s) for s in range(5)])
+    data = data[: data.size - 4000].tobytes()
+    src, arc, out = (str(tmp_path / f) for f in ("in", "in.jt3", "out"))
+    with open(src, "wb") as f:
+        f.write(data)
+    opt = pipeline.Options(blocksize=1 << 20, rans_lanes=4,
+                           ans_chunk=16 << 10, anchor_units=960,
+                           lpx_spans=4096, lpx_auto=True)
+    with open(src, "rb") as fin, open(arc, "wb") as fout:
+        pipeline.compress_stream(fin, fout, opt, NativeEngine())
+    assert cli.run(["cli", "d", arc, out, "--device", "cuda:0"]) == 0
+    monkeypatch.setattr(sharding, "_mesh_batch", lambda mesh, size: 2)
+    with open(arc, "rb") as f:
+        got = sharding.decode_archive_sharded(f, ["cuda:0", "cuda:0"])
+    with open(out, "rb") as f:
+        assert f.read() == got == data

@@ -19,6 +19,7 @@ from jampack_tpu.format import framing as jframing
 from jampack_tpu.format import tables as jtables
 from jampack_tpu.format import varint as jvarint
 from jampack_tpu.runtime import device_decode as jdd
+from jampack_tpu.runtime import distributed as jdistributed
 from jampack_tpu.runtime import engines as jengines
 from jampack_tpu.runtime import metrics as jmetrics
 from jampack_tpu.runtime import pipeline as jpipeline
@@ -31,7 +32,8 @@ from jampack_tpu.stages import lz77 as jlz77
 from jampack_tpu_torch import cli
 from jampack_tpu_torch.format import checksum, constants, framing, tables, varint
 from jampack_tpu_torch.runtime import device_decode as dd
-from jampack_tpu_torch.runtime import engines, metrics, options, pipeline
+from jampack_tpu_torch.runtime import distributed, engines, metrics, options
+from jampack_tpu_torch.runtime import pipeline
 from jampack_tpu_torch.runtime import sysinfo
 from jampack_tpu_torch.stages import ans, filters, lpx, lz77
 
@@ -49,8 +51,11 @@ def test_every_module_imports_with_jax_and_jampack_tpu_blocked():
             "jampack_tpu_torch.kernels.block_scatter",
             "jampack_tpu_torch.kernels.filters",
             "jampack_tpu_torch.native",
+            "jampack_tpu_torch.dryrun",
+            "jampack_tpu_torch.runtime.distributed",
             "jampack_tpu_torch.runtime.engines",
             "jampack_tpu_torch.runtime.metrics",
+            "jampack_tpu_torch.runtime.sharding",
             "jampack_tpu_torch.runtime.pipeline",
             "jampack_tpu_torch.runtime.sysinfo",
             *(f"jampack_tpu_torch.stages.{m}" for m in STAGES)} <= set(mods)
@@ -120,11 +125,16 @@ def test_stage_copies_equal_their_originals(name):
     (metrics, jmetrics, ["StageMetrics", "InstrumentedEngine"]),
     (engines, jengines, ["NativeEngine"]),
     (sysinfo, jsysinfo, ["core_count", "available_memory"]),
+    (distributed, jdistributed, ["owner", "decompress_stream_part",
+                                 "compress_stream_part", "stitch_archive",
+                                 "stitch"]),
     (cli, jcli, ["plan_workers", "_Progress", "info"])])
 def test_copied_runtime_code_equals_its_original(port, ref, names):
     """Line for line.  Where a copy must differ it is held by behaviour
     instead: pipeline's gate calls the integer comparison that the device
-    encode shares (test_copied_functions_agree); sysinfo's device half
+    encode shares (test_copied_functions_agree); distributed's initialize
+    meets over torch.distributed (tests/test_torch_distributed.py);
+    sysinfo's device half
     asks PyTorch and raises without a card (tests/test_torch_engines_
     native.py); the hybrid and per-stage engines run the port's kernels
     (tests/test_torch_engines*.py)."""
