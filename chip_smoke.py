@@ -156,6 +156,13 @@ and the stage engines (--engine native, hybrid and gpu):
                "cuda:0"]); the compute walls of the production and JAM blocks
                both ways; one device_trace of a batched decode, whose file
                must exist; the numbers as one "phase23 {...}" line
+ 24. bench     `python -m jampack_tpu_torch.bench --trials 3` in process
+               (the port's bench: the BWT codec cycle at 120 and 1,920
+               units, the block keys; the 32 MiB archive run through `cli
+               c|d` at --trials 1, for the script's time), every launch
+               count zeroed just before: every contract
+               holds, every timed key is a number, K3 runs at both unit
+               counts; its line as "phase24 {...}"
 
 Any failure raises, so the script exits non-zero without its last line.
 The last lines are the kernels JSON (times, launches on the path that
@@ -184,7 +191,8 @@ each encode of phase 18, host_lz_launches, and K6 its time at the JAM
 shape, jam_ms and jam_cycles_per_step; K11 the numbers of phase 19,
 token_dense; every kernel the stage engines launched in phase 20 its
 launches there by run, engine_launches; every kernel phase 23's batched
-and one-at-a-time runs launched its launches by run, batch_launches; then
+and one-at-a-time runs launched its launches by run, batch_launches; every
+kernel the bench launched its launches by bench key, bench_launches; then
 the nvidia-smi line, and {"ok": true, "device": {...}}.
 Exits 1 at once when no GPU is present.
 """
@@ -1382,6 +1390,67 @@ def engines_phase(cli, engines, pipeline, dd, kernels, tmp, msrc, mixed,
     return launches
 
 
+def bench_phase(bench, rows) -> dict:
+    """`python -m jampack_tpu_torch.bench --trials 3` in process, the
+    archive group at --trials 1 (the script's time), with every kernel's
+    launch count zeroed just before: every contract must hold and every
+    timed key be a number; K3 must run at 120 and 1,920 units, and the
+    decode and encode kernels on the block keys.  Adds each kernel's
+    launches by bench key to its row as bench_launches.  Returns the
+    bench's line, the archive group's keys merged in."""
+    import math
+
+    zero(bench._kernels())
+    t0 = time.perf_counter()
+    line = bench.run(["--trials", "3", "--keys", "bwt,block"])
+    archive = bench.run(["--trials", "1", "--keys", "archive"])["extra"]
+    wall = time.perf_counter() - t0
+    extra = line["extra"]
+    for key in ("contracts", "launches"):
+        extra[key].update(archive.pop(key))
+    archive["archive_trials"] = archive.pop("trials")
+    extra.update({k: v for k, v in archive.items() if k not in extra})
+    check(extra["contracts"] and all(extra["contracts"].values()),
+          f"bench contracts {extra['contracts']}")
+    timed = {"value": line["value"], **{
+        k: v for k, v in extra.items()
+        if k.endswith(("_mbps", "_gbps", "_ms", "_s", "_min", "_max"))}}
+    # a set-up time may round to 0 (a library already built); a rate not
+    bad = [k for k, v in timed.items()
+           if isinstance(v, bool) or not isinstance(v, (int, float))
+           or not math.isfinite(v) or v < 0 or (v == 0 and k[-2:] != "_s")]
+    check(not bad, f"bench keys that are not numbers: {bad}")
+    launches = extra["launches"]
+    for key in ("bwt_u120", "bwt_u1920"):
+        check(launches[key].get("ibwt_chase", 0) > 0,
+              f"K3 did not run on the bench's {key}")
+    for key, names in (
+            ("decode_e2e_fused_8mb_gbps", ("rans_decode", "rank_decode",
+                                           "ibwt_chase", "lz_parse",
+                                           "lpx_walk")),
+            ("encode_e2e_fused_8mb_mbps", ("rank_encode", "model_pairs",
+                                           "rans_encode", "lpx_walk")),
+            ("archive_jam_encode_fused_32mb_mbps", ("joint_hist",))):
+        missing = [n for n in names if not launches[key].get(n)]
+        check(not missing, f"the bench's {key} did not launch {missing}")
+    for key, counts in launches.items():
+        for name, n in counts.items():
+            if name in rows:
+                rows[name].setdefault("bench_launches", {})[key] = n
+    print(f"bench: {wall:.1f} s; {bench_summary(line)}; contracts "
+          f"{len(extra['contracts'])} held; launches by key {launches}")
+    return line
+
+
+def bench_summary(line) -> str:
+    e = line["extra"]
+    return (f"{line['metric']} {line['value']} {line['unit']} (forward "
+            f"{e['bwt_forward_u120_ms']} ms, inverse "
+            f"{e['bwt_inverse_u120_ms']} ms, K3 {e['bwt_chase_u120_ms']} "
+            f"ms); decode {e['decode_e2e_fused_8mb_gbps']} GB/s, encode "
+            f"{e['encode_e2e_fused_8mb_mbps']} MB/s a block")
+
+
 def main() -> int:
     import torch
 
@@ -1392,7 +1461,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    from jampack_tpu_torch import cli, dryrun, native
+    from jampack_tpu_torch import bench, cli, dryrun, native
     from jampack_tpu_torch.format import framing
     from jampack_tpu_torch.kernels import (
         _build,
@@ -2274,6 +2343,10 @@ def main() -> int:
               f"bound {k9[S]['bound_ms']:.4f} ms (bytes)")
     rows["block_scatter"] = {**k9[1024], "ms_by_S": {
         str(S): r["ms"] for S, r in k9.items()}}
+
+    # ---- 24. the bench, in process, every launch count zeroed first
+    bench_line = bench_phase(bench, rows)
+    print("phase24 " + json.dumps(bench_line))
 
     # launches: each kernel's count on the path that runs it (decode, the
     # -f0 encode, the -f1 encode for K7, the -f2 encode for K8, the

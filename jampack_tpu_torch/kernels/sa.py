@@ -43,15 +43,18 @@ def _rank_of_sorted(keys_sorted: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(bound, 0) - 1
 
 
-def _sa_doubling_sorted(t: torch.Tensor, n: int):
+def _sa_doubling_sorted(t: torch.Tensor, n: int, stats: dict = None):
     """Prefix doubling.  Returns (order, rank_sorted): order is the suffix
-    array and rank_sorted[j] = j once every rank is distinct."""
+    array and rank_sorted[j] = j once every rank is distinct.  With a dict
+    `stats`, stats["rounds"] is the number of doubling rounds (each ends in
+    one host sync, the fetch of the largest rank)."""
     dev = t.device
     pos = torch.arange(n, dtype=torch.long, device=dev)
     rem = torch.clamp(n - pos, max=_K0)
     keys, order = torch.sort((_pack(t, n, _K0) << 3) | rem)
     rank_sorted = _rank_of_sorted(keys)
     k = _K0
+    rounds = 0
     while int(rank_sorted[-1]) != n - 1 and k < 2 * n:
         rank = torch.empty_like(rank_sorted)
         rank[order] = rank_sorted
@@ -59,13 +62,17 @@ def _sa_doubling_sorted(t: torch.Tensor, n: int):
         keys, order = torch.sort((rank << 32) | second)
         rank_sorted = _rank_of_sorted(keys)
         k *= 2
+        rounds += 1
+    if stats is not None:
+        stats["rounds"] = rounds
     return order, rank_sorted
 
 
-def sa_doubling_core(t: torch.Tensor, n: int):
+def sa_doubling_core(t: torch.Tensor, n: int, stats: dict = None):
     """(order, isa, prev_sorted) of t[:n]: the suffix array, its inverse,
-    and prev_sorted[j] = t[(order[j] - 1) mod n], the BWT payload."""
-    order, rank_sorted = _sa_doubling_sorted(t, n)
+    and prev_sorted[j] = t[(order[j] - 1) mod n], the BWT payload.  `stats`
+    as in _sa_doubling_sorted."""
+    order, rank_sorted = _sa_doubling_sorted(t, n, stats)
     isa = torch.empty_like(order)
     isa[order] = rank_sorted
     prev_sorted = t[(order - 1) % n]
