@@ -1,6 +1,6 @@
 """Command line of the port.
 
-    python -m jampack_tpu_torch.cli <c|d> input output [-b# -m# -f# -t# -T -v] [-u# -c# -L# -S# -Sa] [--engine E] [--device cuda|cpu]
+    python -m jampack_tpu_torch.cli <c|d> input output [-b# -m# -f# -t# -T -v] [-u# -c# -L# -S# -Sa] [--engine E] [--device cuda|cpu] [--trace DIR]
     python -m jampack_tpu_torch.cli i archive          (dump block headers)
 
 Flags and messages are jampack_tpu.cli's (_parse is a copy): -b block size
@@ -33,17 +33,23 @@ read-ahead window.  --engine tpu is refused: its counterpart here is gpu.
 every card of the host for fused and the current card for the others;
 cuda:N is that card.  There is no fallback to the CPU: --device cpu runs
 the plain PyTorch versions of the kernels and exists for tests.
+
+--trace DIR runs the call under torch.profiler and records the program's
+spans (runtime/metrics.py): DIR/trace.json holds the device's and the
+host's events and the spans, on the profiler's clock.
 """
 
 import sys
 import time
 from collections import deque
+from contextlib import contextmanager
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from .format import framing
 from .format.constants import DEFAULT_BLOCKSIZE, MAX_BLOCKSIZE, MIN_BLOCKSIZE
+from .runtime.metrics import span
 from .runtime.options import (
     Options,
     validate_lpx_spans,
@@ -56,9 +62,11 @@ ENGINES = ("fused", "gpu", "hybrid", "native", "numpy")
 
 
 def _split_flags(argv):
-    """(argv without --device/--engine, the device or 'cuda', the engine or
-    'fused'); each takes `--flag value` or `--flag=value`."""
-    rest, found, i = [], {"--device": "cuda", "--engine": "fused"}, 0
+    """(argv without --device/--engine/--trace, the device or 'cuda', the
+    engine or 'fused', the trace directory or None); each takes `--flag
+    value` or `--flag=value`."""
+    rest, i = [], 0
+    found = {"--device": "cuda", "--engine": "fused", "--trace": None}
     while i < len(argv):
         arg = argv[i]
         name = arg.split("=", 1)[0]
@@ -73,7 +81,7 @@ def _split_flags(argv):
         else:
             rest.append(arg)
         i += 1
-    return rest, found["--device"], found["--engine"]
+    return rest, found["--device"], found["--engine"], found["--trace"]
 
 
 def _parse(argv):
@@ -241,29 +249,53 @@ def _mesh_label(mesh) -> str:
     return f"fused x{len(mesh)}: {', '.join(names)}"
 
 
-def _run_fused(mode, inp, outp, opt, device) -> None:
+@contextmanager
+def _files(inp, outp):
+    """(input, output) opened in a span cli.open (an output FIFO waits
+    there for its reader) and closed in a span cli.close."""
+    with span("cli.open"):
+        fin = open(inp, "rb")
+        try:
+            fout = open(outp, "wb")
+        except BaseException:
+            fin.close()
+            raise
+    try:
+        yield fin, fout
+    finally:
+        with span("cli.close"):
+            try:
+                fout.close()
+            finally:
+                fin.close()
+
+
+def _run_fused(mode, inp, outp, opt, device):
     """c and d through runtime/sharding.py across the mesh --device names
     (cuda: every card of this host; cuda:N: that card alone; cpu: the
     plain versions), a window of (cards x batch) blocks at a time, written
-    as it finishes."""
+    as it finishes.  Returns (raw bytes, compressed bytes)."""
     from .runtime.sharding import (decode_archive_to, encode_archive_sharded,
                                    make_mesh)
 
-    if mode == "c" and opt.filters not in (0, 1, 2):
-        raise SystemExit(f"--engine fused: -f{opt.filters}: the fused "
-                         f"encode runs -f0/-f1/-f2; the -f3 device filter "
-                         f"search runs on --engine gpu")
-    mesh = make_mesh() if device == "cuda" else make_mesh([device])
+    with span("cli.setup"):
+        if mode == "c" and opt.filters not in (0, 1, 2):
+            raise SystemExit(f"--engine fused: -f{opt.filters}: the fused "
+                             f"encode runs -f0/-f1/-f2; the -f3 device "
+                             f"filter search runs on --engine gpu")
+        mesh = make_mesh() if device == "cuda" else make_mesh([device])
     start = time.time()
     progress = _Progress("compressing" if mode == "c" else "decompressing")
-    with open(inp, "rb") as fin, open(outp, "wb") as fout:
+    with _files(inp, outp) as (fin, fout):
         if mode == "c":
             raw, comp = encode_archive_sharded(fin, fout, opt, mesh,
                                                progress=progress.update)
         else:
             raw, comp = decode_archive_to(fin, fout, mesh, progress.update)
-    progress.done()
-    _summary(raw, comp, time.time() - start, _mesh_label(mesh))
+    with span("cli.close"):
+        progress.done()
+        _summary(raw, comp, time.time() - start, _mesh_label(mesh))
+    return raw, comp
 
 
 def _encode_blocks(fin, fout, opt, engine, workers, progress):
@@ -331,41 +363,60 @@ def _decode_blocks(fin, fout, engine, workers, progress):
 
 
 def run(argv) -> int:
-    argv, device, engine_name = _split_flags(list(argv))
+    argv, device, engine_name, trace = _split_flags(list(argv))
     if len(argv) >= 3 and argv[1] == "i":
         return info(argv[2])
     if len(argv) < 4:
         print(__doc__)
         return 0
-    mode, inp, outp, opt = _parse(argv)
-    if mode not in ("c", "d"):
-        raise SystemExit("Invalid option!")
-    if engine_name == "tpu":
-        raise SystemExit("--engine tpu: the port runs on the GPU; its "
-                         "per-stage device engine is --engine gpu")
-    if engine_name not in ENGINES:
-        raise SystemExit(f"--engine {engine_name}: the engines are "
-                         f"{', '.join(ENGINES)}")
-    if engine_name == "fused":
-        _run_fused(mode, inp, outp, opt, device)
-        return 0
-    engine = _make_engine(engine_name, opt.threads, device)
-    verbose = any(a in ("-v", "--verbose") for a in argv[4:])
-    if verbose:
-        from .runtime.metrics import InstrumentedEngine
+    if trace is None:
+        return _run(argv, device, engine_name)
+    from .runtime.metrics import device_trace, tracing
 
-        engine = InstrumentedEngine(engine)
-    start = time.time()
-    workers = plan_workers(opt)
-    progress = _Progress("compressing" if mode == "c" else "decompressing")
-    with open(inp, "rb") as fin, open(outp, "wb") as fout:
-        if mode == "c":
-            raw, comp = _encode_blocks(fin, fout, opt, engine, workers,
-                                       progress)
-        else:
-            raw, comp = _decode_blocks(fin, fout, engine, workers, progress)
-    progress.done()
-    _summary(raw, comp, time.time() - start, engine.name)
+    with tracing(), device_trace(trace):
+        return _run(argv, device, engine_name)
+
+
+def _run(argv, device, engine_name) -> int:
+    """One c or d call, the span "op" around it."""
+    with span("op") as op:
+        with span("cli.setup"):
+            mode, inp, outp, opt = _parse(argv)
+            if mode not in ("c", "d"):
+                raise SystemExit("Invalid option!")
+            if engine_name == "tpu":
+                raise SystemExit("--engine tpu: the port runs on the GPU; "
+                                 "its per-stage device engine is --engine "
+                                 "gpu")
+            if engine_name not in ENGINES:
+                raise SystemExit(f"--engine {engine_name}: the engines are "
+                                 f"{', '.join(ENGINES)}")
+        if engine_name == "fused":
+            raw, comp = _run_fused(mode, inp, outp, opt, device)
+            op.add(raw=raw, comp=comp)
+            return 0
+        with span("cli.setup"):
+            engine = _make_engine(engine_name, opt.threads, device)
+            verbose = any(a in ("-v", "--verbose") for a in argv[4:])
+            if verbose:
+                from .runtime.metrics import InstrumentedEngine
+
+                engine = InstrumentedEngine(engine)
+            start = time.time()
+            workers = plan_workers(opt)
+        progress = _Progress("compressing" if mode == "c"
+                             else "decompressing")
+        with _files(inp, outp) as (fin, fout):
+            if mode == "c":
+                raw, comp = _encode_blocks(fin, fout, opt, engine, workers,
+                                           progress)
+            else:
+                raw, comp = _decode_blocks(fin, fout, engine, workers,
+                                           progress)
+        with span("cli.close"):
+            progress.done()
+            _summary(raw, comp, time.time() - start, engine.name)
+        op.add(raw=raw, comp=comp)
     if verbose:
         print(f"per-stage (aggregated across {workers} threads):")
         print(engine.metrics.report())

@@ -163,7 +163,8 @@ def _load() -> ctypes.CDLL:
 class Kernel:
     """One hand-written kernel: its C entry point, where it came from, and a
     count of its launches (bumped only where the kernel is enqueued, under
-    a lock, so that launches from several host threads all count)."""
+    a lock, so that launches from several host threads all count).  Every
+    kernel made is in KERNELS."""
 
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name = name
@@ -171,6 +172,7 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        KERNELS.append(self)
 
     def launch(self, *args) -> None:
         """Enqueue the kernel.  The stream argument (stream_of) names the
@@ -191,6 +193,14 @@ class Kernel:
                                f"({lib.jt_error_string(err).decode()})")
         with _COUNT_LOCK:
             self.launches += 1
+
+
+KERNELS = []
+
+
+def launched() -> int:
+    """The launches of every kernel so far, summed."""
+    return sum(k.launches for k in KERNELS)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -19,7 +19,6 @@ the rest is plain PyTorch.
 """
 
 import ctypes
-import time
 
 import numpy as np
 import torch
@@ -27,6 +26,7 @@ import torch.nn.functional as F
 
 from ..format.constants import FILTER_BLOCK_SIZE, LZ_MIN_MATCH
 from ..format.varint import CONSTANTS as _VARINT_CONSTANTS
+from ..runtime.metrics import Marks, span
 
 from ._build import Kernel, ptr, stream_of
 from .ibwt import chase, combined_map
@@ -194,13 +194,15 @@ def _lz_parse_at(buf: torch.Tensor, n: int, max_tokens: int, out_cap: int,
     # goes on, its position)
     LZ_KERNEL.launch(ptr(buf), buf.numel(), n, MT, out_cap, head,
                      *(_addr(out, k * MT) for k in range(6)), stream_of(buf))
-    t, out_len, bad, go_on, pos = out[5 * MT:].tolist()
+    with span("sync.lz_head"):
+        t, out_len, bad, go_on, pos = out[5 * MT:].tolist()
     if go_on and stop:
         _lz_chain(buf, n, MT, out_cap, out, (pos, t, out_len), jump, stop)
     if stop < 5:
         return None
     if go_on:
-        t, out_len, bad = out[5 * MT:5 * MT + 3].tolist()
+        with span("sync.lz_chain"):
+            t, out_len, bad = out[5 * MT:5 * MT + 3].tolist()
     return (*out[:5 * MT].view(5, MT).unbind(0), t, out_len, bool(bad))
 
 
@@ -479,16 +481,17 @@ def lz_expand(buf: torch.Tensor, d_, s_, l_, o_, out_len: int):
     src = (s_[tok] + (p - d_[tok])).clamp(0, max(N - 1, 0))
     val = torch.where(is_lit, buf[src] if N else 0, 0).to(torch.uint8)
     ptr = torch.where(is_lit, p, p - o_[tok]).clamp(0, out_len - 1)
-    if not bool((~is_lit).any()):
-        return val
-    # a valid stream's pointers only go back, so doubling settles within
-    # log2(out_len) + 1 rounds; the cap ends the cycles a corrupt token
-    # (already flagged bad by the parse) can make
-    for _ in range(64):
-        nxt = ptr[ptr]
-        if torch.equal(nxt, ptr):
-            break
-        ptr = nxt
+    with span("sync.lz_expand"):
+        if not bool((~is_lit).any()):
+            return val
+        # a valid stream's pointers only go back, so doubling settles
+        # within log2(out_len) + 1 rounds; the cap ends the cycles a
+        # corrupt token (already flagged bad by the parse) can make
+        for _ in range(64):
+            nxt = ptr[ptr]
+            if torch.equal(nxt, ptr):
+                break
+            ptr = nxt
     return val[ptr]
 
 
@@ -540,7 +543,8 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
     hdr = np.arange(K, dtype=np.int64) * (_FBS + 2)
     plen_np = np.minimum(_FBS, m - hdr - 2)
     short = bool(np.any(m - hdr < 2))
-    plen = torch.as_tensor(plen_np, device=dev)[:, None]
+    with span("sync.filters"):  # a copy from pageable memory waits
+        plen = torch.as_tensor(plen_np, device=dev)[:, None]
     ftype = bp[:, 0].to(torch.int32)[:, None]
     width = bp[:, 1].to(torch.int32)[:, None]
     ok = ~((ftype >= 3) | (width > 32)).any() & (not short)
@@ -550,9 +554,10 @@ def filters_decode_dyn(buf: torch.Tensor, m: int, out_cap: int):
     C8 = torch.where(inb, bp[:, 2:], 0)
     C = C8.to(torch.int32)
     w = width.clamp(min=1)
-    flags = torch.stack([((ftype <= 1) & (width > 0)).any(),
-                         ((ftype == 1) & (width > 0)).any(),
-                         ((ftype == 2) & (width > 0)).any()]).tolist()
+    with span("sync.filters"):
+        flags = torch.stack([((ftype <= 1) & (width > 0)).any(),
+                             ((ftype == 1) & (width > 0)).any(),
+                             ((ftype == 2) & (width > 0)).any()]).tolist()
     any_01, any_lpc, any_inline = flags
 
     dec01 = C
@@ -613,7 +618,8 @@ def ibwt_dyn(buf: torch.Tensor, total: int, units: int):
     rem = n % units if n > 0 else 0
     nlen = max(n - rem, 0)
     anchors = read_anchors(buf, n, units)
-    ok = torch.tensor(n >= 0, device=dev)
+    with span("sync.ibwt"):  # a copy from pageable memory waits
+        ok = torch.tensor(n >= 0, device=dev)
     out = torch.zeros(max(n, 0), dtype=torch.uint8, device=dev)
     if nlen > 0:
         ok = ok & ((anchors >= 1) & (anchors <= nlen)).all()
@@ -661,7 +667,9 @@ def decode_blocks_core(payload, offsets, metas, lanes: int, units: int,
     each payload's offset), RLE0 and K2 over every
     chunk row, and every block's Lpx spans in one K10 launch.  The concat,
     the inverse BWT, both LZ parses (a stream's walk is its own) and the
-    filters run block by block.  With a dict `times`, each stage is
+    filters run block by block.  Each stage ends at a mark of one
+    metrics.Marks clock (span "chain.<stage>"; sync.* spans around the
+    host's reads of device data); with a dict `times`, each stage is
     synchronized on the calling thread's stream and its wall seconds added
     under its name (a batched stage once for the batch).  Returns (outs,
     ns, oks): per block its (n,) uint8 output, n and ok, from one status
@@ -676,17 +684,7 @@ def decode_blocks_core(payload, offsets, metas, lanes: int, units: int,
     live = [i for i in range(B) if np.size(metas[i]["chunk_olens"]) > 0]
     if not live:
         return outs, ns, oks
-    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-    t0 = time.perf_counter()
-
-    def mark(name):
-        nonlocal t0
-        if times is not None:
-            if stream is not None:
-                stream.synchronize()
-            now = time.perf_counter()
-            times[name] = times.get(name, 0.0) + now - t0
-            t0 = now
+    mark = Marks(dev, times, "chain")
 
     def dt(a, dtype=torch.int32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
@@ -737,7 +735,8 @@ def decode_blocks_core(payload, offsets, metas, lanes: int, units: int,
         else:
             keep = (torch.arange(ocap, device=dev)[None, :]
                     < olens[c0:c1, None])
-            stages.append(rows[keep])
+            with span("sync.concat"):
+                stages.append(rows[keep])
         totals.append(total)
     mark("concat")
     # 6..7. inverse BWT and LZ (mode), block by block
@@ -769,7 +768,9 @@ def decode_blocks_core(payload, offsets, metas, lanes: int, units: int,
                     & (rle_ok[c0:c1] | (olens[c0:c1] <= 0)).all()
                     & rank_ok[c0:c1].all() & flags[j] & f_ok)
         lz_oks[j] = lz_oks[j] and lz0_ok
-    for i, flag, lz_ok in zip(live, torch.stack(flags).tolist(), lz_oks):
+    with span("sync.status"):
+        status = torch.stack(flags).tolist()
+    for i, flag, lz_ok in zip(live, status, lz_oks):
         oks[i] = bool(flag) and lz_ok
     mark("status")
     return outs, ns, oks

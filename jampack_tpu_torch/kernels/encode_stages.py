@@ -19,8 +19,6 @@ Lpx span walk (K10, lpx.py), the model pass (K4) and the reverse rANS (K5)
 in rans_encode.py; the rest is plain PyTorch.
 """
 
-import time
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -285,28 +283,7 @@ def deal(syms: torch.Tensor, rlens: torch.Tensor, lanes: int):
     return chains.to(torch.uint16), crlens, max_rlen
 
 
-class Marks:
-    """One clock over a block's stages: mark(name) synchronizes the calling
-    thread's stream on the device (not the whole card, where other workers
-    run) and adds the wall seconds since the last mark to times[name].
-    With times None nothing is timed."""
-
-    def __init__(self, dev, times):
-        self.times, self.t0 = times, time.perf_counter()
-        self.stream = (torch.cuda.current_stream(dev)
-                       if dev.type == "cuda" else None)
-
-    def __call__(self, name):
-        if self.times is None:
-            return
-        if self.stream is not None:
-            self.stream.synchronize()
-        now = time.perf_counter()
-        self.times[name] = self.times.get(name, 0.0) + now - self.t0
-        self.t0 = now
-
-
-def _no_mark(name):
+def _no_mark(name, **_):
     pass
 
 
@@ -321,8 +298,8 @@ def encode_front(s1: torch.Tensor, fconfigs=None, *, lpx_spans: int = 0,
     lpx_auto it is kept only where pipeline._lpx_gain_gate's integer
     compare passes.  Returns (s2 (n2,) uint8, lpx_kept), n2 = n1 + 2 *
     ceil(n1 / 65,536); lpx_kept says whether the block carries the Lpx
-    stage (its span word is lpx_spans, else 0).  mark: a Marks, called
-    after each stage."""
+    stage (its span word is lpx_spans, else 0).  mark: the block's
+    runtime.metrics.Marks, called after each stage with layer "chain"."""
     s2s, kept = encode_front_blocks([s1], [fconfigs], lpx_spans=lpx_spans,
                                     lpx_auto=lpx_auto, mark=mark)
     return s2s[0], kept[0]
@@ -336,7 +313,7 @@ def encode_front_blocks(s1s, fconfigs, *, lpx_spans: int = 0,
     of the zero counts the gates compare.  Returns (the B stage-2 streams,
     the B lpx_kept flags)."""
     s2s = [filter_stage(s1, fc) for s1, fc in zip(s1s, fconfigs)]
-    mark("filters")
+    mark("filters", layer="chain")
     kept = [lpx_spans > 0] * len(s2s)
     if lpx_spans > 0:
         s2ls = lpx_blocks(s2s, [s2.numel() for s2 in s2s], lpx_spans,
@@ -347,7 +324,7 @@ def encode_front_blocks(s1s, fconfigs, *, lpx_spans: int = 0,
             kept = [gain_gate(z0, z1, s2.numel())
                     for (z0, z1), s2 in zip(zeros, s2s)]
         s2s = [b if k else a for a, b, k in zip(s2s, s2ls, kept)]
-        mark("lpx")
+        mark("lpx", layer="chain")
     return s2s, kept
 
 
@@ -376,7 +353,7 @@ def encode_back_blocks(s3s, *, units: int, chunk: int, lanes: int,
     and one K5 launch.  Returns encode_back's tuple for each block."""
     eff = max(lanes, 1)
     s4s = [forward_bwt(s3, units) for s3 in s3s]
-    mark("bwt")
+    mark("bwt", layer="chain")
     # entropy, every chunk of every block at once: rank -> RLE0 -> deal
     cut = [chunk_rows(s4, chunk) for s4 in s4s]
     offs = np.cumsum([0] + [r.shape[0] for r, _ in cut]).tolist()
@@ -386,16 +363,16 @@ def encode_back_blocks(s3s, *, units: int, chunk: int, lanes: int,
         rows = torch.cat([r for r, _ in cut])
         olens = torch.cat([o for _, o in cut])
     ranks, freqs = rank_encode(rows, olens)
-    mark("rank")
+    mark("rank", layer="chain")
     syms, rlens = rle0_encode(ranks, olens)
-    mark("rle0")
+    mark("rle0", layer="chain")
     chains, crlens, max_rlen = deal(syms, rlens, lanes)
-    mark("deal")
+    mark("deal", layer="chain")
     # model pass, then the reverse interleaved rANS
     lows, fqs, oks = model_pairs_wide(chains, crlens, max_rlen)
-    mark("model")
+    mark("model", layer="chain")
     bufs, ptrs = rans_reverse_encode_wide(lows, fqs, crlens, max_rlen)
-    mark("rans")
+    mark("rans", layer="chain")
     return [(bufs[a * eff:b * eff], ptrs[a * eff:b * eff],
              oks[a * eff:b * eff], freqs[a:b], rlens[a:b])
             for a, b in zip(offs[:-1], offs[1:])]

@@ -32,6 +32,7 @@ from ..format.constants import (
     LPX_MAX_THRESHOLD,
     LPX_MIN_THRESHOLD,
 )
+from ..runtime.metrics import span
 from ..stages.lpx import _split_spans
 
 from ._build import Kernel, ptr, stream_of
@@ -260,7 +261,8 @@ def lpx_blocks(bufs, ns, spans: int, decode: bool):
                        for s, ln in _split_spans(n, spans)],
                       dtype=torch.int32).reshape(-1, 2)
     max_len = int(sp[:, 1].max()) if sp.numel() else 0
-    sp = sp.to(flat.device)
+    with span("sync.lpx"):  # a copy from pageable memory waits
+        sp = sp.to(flat.device)
     out = lpx_walk(flat, sp[:, 0].contiguous(), sp[:, 1].contiguous(), decode,
                    max_len)
     return [out[a:b] for a, b in zip(offs[:-1], offs[1:])]

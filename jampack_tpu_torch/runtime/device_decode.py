@@ -11,8 +11,6 @@ There is no fallback: a corrupt block raises ValueError, and asking for
 CUDA without a card raises RuntimeError.
 """
 
-import time
-
 import numpy as np
 import torch
 
@@ -21,6 +19,7 @@ from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
 from ..kernels.device_stages import decode_blocks_core
 from ..stages.ans import lane_rlen, read_chunk_header, read_lane_table
+from .metrics import Marks, span
 
 
 def _pow2(x: int, lo: int = 8) -> int:
@@ -133,9 +132,13 @@ def decode_blocks_device(payloads, crcs, blocksize: int, units: int = 120,
     2^31 bytes (K1's and K10's offsets are int32), and its working set
     within the card's memory (sharding.batch_blocks).
 
-    With a dict `times`, per-stage wall seconds are added to it (device
-    stages synchronized on the calling thread's stream, a batched stage
-    once for its batch; host_meta, d2h and host_crc around them)."""
+    A group is one span "block.batch"; a metrics.Marks clock ends its
+    stages: block.meta, block.plan, block.upload, block.chain (the call of
+    decode_blocks_core), then block.fetch and block.crc a block.  With a
+    dict `times`, per-stage wall seconds are added to it (device stages
+    synchronized on the calling thread's stream, a batched stage once for
+    its batch; host_meta (meta, plan, upload), d2h and host_crc around
+    them)."""
     dev = resolve(device)
     B = len(payloads)
     spans = ([int(lpx_spans)] * B if np.ndim(lpx_spans) == 0
@@ -146,41 +149,40 @@ def decode_blocks_device(payloads, crcs, blocksize: int, units: int = 120,
     results = [None] * B
     for word in sorted(set(spans)):
         group = [i for i in range(B) if spans[i] == word]
-        t0 = time.perf_counter()
-        metas = []
-        for i in group:
-            try:
-                metas.append(block_meta(payloads[i], lanes))
-            except ValueError as e:
-                raise ValueError(f"corrupt block {idx_map[i]}: {e}") from e
-        shapes = plan_shapes(metas, [len(payloads[i]) for i in group],
-                             blocksize, lanes)
-        host = np.frombuffer(b"".join(payloads[i] for i in group), np.uint8)
-        flat = torch.from_numpy(host.copy()).to(dev)
-        offs = np.cumsum([0] + [len(payloads[i]) for i in group])
-        tokens = [token_slots(int(m["chunk_olens"].sum()), shapes["out_cap"])
-                  for m in metas]
-        t1 = time.perf_counter()
-        outs, ns, oks = decode_blocks_core(flat, offs, metas, lanes, units,
-                                           shapes["out_cap"], tokens, word,
-                                           times)
-        t2 = time.perf_counter()
-        crc_s = 0.0
-        for j, i in enumerate(group):
-            if not oks[j]:
-                raise ValueError(f"device decode failed (corrupt stream) at "
-                                 f"block {idx_map[i]}")
-            data = outs[j][:ns[j]].cpu().numpy()
-            t3 = time.perf_counter()
-            if integrity_check(data) != (crcs[i] & 0xFFFFFFFF):
-                raise ValueError(f"detected corrupt block {idx_map[i]}")
-            crc_s += time.perf_counter() - t3
-            results[i] = data
-        if times is not None:
-            for key, dt in (("host_meta", t1 - t0),
-                            ("d2h", time.perf_counter() - t2 - crc_s),
-                            ("host_crc", crc_s)):
-                times[key] = times.get(key, 0.0) + dt
+        with span("block.batch", blocks=len(group)):
+            mark = Marks(dev, times)
+            metas = []
+            for i in group:
+                try:
+                    metas.append(block_meta(payloads[i], lanes))
+                except ValueError as e:
+                    raise ValueError(
+                        f"corrupt block {idx_map[i]}: {e}") from e
+            mark("meta", "host_meta")
+            shapes = plan_shapes(metas, [len(payloads[i]) for i in group],
+                                 blocksize, lanes)
+            tokens = [token_slots(int(m["chunk_olens"].sum()),
+                                  shapes["out_cap"]) for m in metas]
+            mark("plan", "host_meta")
+            host = np.frombuffer(b"".join(payloads[i] for i in group),
+                                 np.uint8)
+            flat = torch.from_numpy(host.copy()).to(dev)
+            offs = np.cumsum([0] + [len(payloads[i]) for i in group])
+            mark("upload", "host_meta", bytes=host.size)
+            outs, ns, oks = decode_blocks_core(flat, offs, metas, lanes,
+                                               units, shapes["out_cap"],
+                                               tokens, word, times)
+            mark("chain", None)
+            for j, i in enumerate(group):
+                if not oks[j]:
+                    raise ValueError(f"device decode failed (corrupt "
+                                     f"stream) at block {idx_map[i]}")
+                data = outs[j][:ns[j]].cpu().numpy()
+                mark("fetch", "d2h", bytes=data.size)
+                if integrity_check(data) != (crcs[i] & 0xFFFFFFFF):
+                    raise ValueError(f"detected corrupt block {idx_map[i]}")
+                mark("crc", "host_crc")
+                results[i] = data
     return results
 
 

@@ -35,7 +35,6 @@ from .options import LZ_MODE_STORE, Options, validate_match_finder
 from ..device import resolve
 from ..kernels.encode_stages import (
     END_TOKEN,
-    Marks,
     ceil_div,
     encode_back,
     encode_back_blocks,
@@ -43,6 +42,7 @@ from ..kernels.encode_stages import (
     encode_front_blocks,
 )
 from ..kernels.filters_search import pick_f1_configs, pick_f2_configs
+from .metrics import Marks, span
 
 
 def filter_configs(s1: torch.Tensor, filters: int):
@@ -98,27 +98,29 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     units = int(opt.anchor_units)
     chunk = min(max(int(opt.ans_chunk), 1), ANS_CHUNK_SIZE)
     lanes = int(opt.rans_lanes)
-    mark = Marks(dev, times)
-    crc = integrity_check(data)
-    mark("host_crc")
-    s1 = NativeEngine().lz_encode(data, 0)
-    mark("lz_pre")
-    s1 = _h2d(s1, dev)
-    mark("h2d")
-    fc = filter_configs(s1, opt.filters)
-    if fc is not None:
-        mark("search")
-    s2, kept = encode_front(s1, fc, lpx_spans=int(opt.lpx_spans),
-                            lpx_auto=bool(opt.lpx_auto), mark=mark)
-    s2 = s2.cpu().numpy()
-    mark("d2h_s2")
-    s3 = NativeEngine().lz_encode(s2, mode)
-    mark("lz")
-    s3 = _h2d(s3, dev)
-    mark("h2d_s3")
-    chain = encode_back(s3, units=units, chunk=chunk, lanes=lanes, mark=mark)
-    payload = _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk, lanes,
-                                mark)
+    with span("block.batch", blocks=1):
+        mark = Marks(dev, times)
+        crc = integrity_check(data)
+        mark("host_crc")
+        s1 = NativeEngine().lz_encode(data, 0)
+        mark("lz_pre")
+        s1 = _h2d(s1, dev)
+        mark("h2d", bytes=s1.numel())
+        fc = filter_configs(s1, opt.filters)
+        if fc is not None:
+            mark("search")
+        s2, kept = encode_front(s1, fc, lpx_spans=int(opt.lpx_spans),
+                                lpx_auto=bool(opt.lpx_auto), mark=mark)
+        s2 = s2.cpu().numpy()
+        mark("d2h_s2", bytes=s2.size)
+        s3 = NativeEngine().lz_encode(s2, mode)
+        mark("lz")
+        s3 = _h2d(s3, dev)
+        mark("h2d_s3", bytes=s3.numel())
+        chain = encode_back(s3, units=units, chunk=chunk, lanes=lanes,
+                            mark=mark)
+        payload = _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk,
+                                    lanes, mark)
     return crc, payload, int(opt.lpx_spans) if kept else 0
 
 
@@ -153,27 +155,29 @@ def encode_blocks_device(blocks, opt: Options, device="cuda",
     units = int(opt.anchor_units)
     chunk = min(max(int(opt.ans_chunk), 1), ANS_CHUNK_SIZE)
     lanes = int(opt.rans_lanes)
-    mark = Marks(dev, times)
-    crcs = [integrity_check(b) for b in blocks]
-    mark("host_crc")
-    tok = torch.as_tensor(END_TOKEN, device=dev)
-    flat = _h2d(np.concatenate(blocks), dev)
-    n = blocks[0].size
-    s1s = [torch.cat([tok, flat[k * n:(k + 1) * n]])
-           for k in range(len(blocks))]
-    mark("h2d")
-    fcs = [filter_configs(s1, opt.filters) for s1 in s1s]
-    if opt.filters:
-        mark("search")
-    s2s, kept = encode_front_blocks(s1s, fcs, lpx_spans=int(opt.lpx_spans),
-                                    lpx_auto=bool(opt.lpx_auto), mark=mark)
-    s3s = [torch.cat([tok, s2]) for s2 in s2s]
-    chains = encode_back_blocks(s3s, units=units, chunk=chunk, lanes=lanes,
-                                mark=mark)
-    return [(crc, _fetch_and_splice(*chain, s3.numel() + 4 * units, chunk,
-                                    lanes, mark),
-             int(opt.lpx_spans) if k else 0)
-            for crc, chain, s3, k in zip(crcs, chains, s3s, kept)]
+    with span("block.batch", blocks=len(blocks)):
+        mark = Marks(dev, times)
+        crcs = [integrity_check(b) for b in blocks]
+        mark("host_crc")
+        tok = torch.as_tensor(END_TOKEN, device=dev)
+        flat = _h2d(np.concatenate(blocks), dev)
+        n = blocks[0].size
+        s1s = [torch.cat([tok, flat[k * n:(k + 1) * n]])
+               for k in range(len(blocks))]
+        mark("h2d", bytes=flat.numel())
+        fcs = [filter_configs(s1, opt.filters) for s1 in s1s]
+        if opt.filters:
+            mark("search")
+        s2s, kept = encode_front_blocks(
+            s1s, fcs, lpx_spans=int(opt.lpx_spans),
+            lpx_auto=bool(opt.lpx_auto), mark=mark)
+        s3s = [torch.cat([tok, s2]) for s2 in s2s]
+        chains = encode_back_blocks(s3s, units=units, chunk=chunk,
+                                    lanes=lanes, mark=mark)
+        return [(crc, _fetch_and_splice(*chain, s3.numel() + 4 * units,
+                                        chunk, lanes, mark),
+                 int(opt.lpx_spans) if k else 0)
+                for crc, chain, s3, k in zip(crcs, chains, s3s, kept)]
 
 
 def _check_filters(opt: Options) -> None:
@@ -222,7 +226,7 @@ def _fetch_and_splice(bufs, ptrs, oks, freqs, rlens, n4: int, chunk: int,
             "model failure (CDF): chunk not encodable in ref-compat mode")
     lens = blen - ptrs.astype(np.int64)
     dense = dense[:int(lens.sum())].cpu().numpy()
-    mark("d2h")
+    mark("d2h", bytes=dense.size + meta.nbytes)
     payload = splice_dense(dense, lens, freqs, rlens, n4, chunk, lanes)
     mark("splice")
     return payload

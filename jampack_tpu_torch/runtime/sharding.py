@@ -26,6 +26,7 @@ Multi-host: runtime/distributed.py divides blocks between processes; each
 process drives its local cards through this module.
 """
 
+import contextvars
 import io
 from concurrent.futures import ThreadPoolExecutor
 
@@ -36,6 +37,7 @@ from ..device import resolve
 from ..format import framing
 from .device_decode import decode_blocks_device
 from .device_encode import encode_block_device_ex, encode_blocks_device
+from .metrics import span
 from .options import LZ_MODE_STORE
 from .sysinfo import available_memory, device_memory, gpu_devices
 
@@ -117,32 +119,37 @@ class _Workers:
     and runs every job on a stream of its own; the CPU entries share one
     thread (the plain versions hold the interpreter lock between their
     small tensor ops, so threads of their own would only contend).  A job
-    is fn(device, *args)."""
+    is fn(device, *args), run in a copy of the submitter's context, so that
+    its spans belong to the submitter's op and span."""
 
     def __init__(self, mesh):
-        self.mesh = list(mesh)
-        cpu = ThreadPoolExecutor(1)
-        self.pools = [ThreadPoolExecutor(1) if d.type == "cuda" else cpu
-                      for d in self.mesh]
-        self.streams = [None] * len(self.mesh)
+        with span("workers.start"):
+            self.mesh = list(mesh)
+            cpu = ThreadPoolExecutor(1)
+            self.pools = [ThreadPoolExecutor(1) if d.type == "cuda" else cpu
+                          for d in self.mesh]
+            self.streams = [None] * len(self.mesh)
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        for pool in set(self.pools):
-            pool.shutdown(wait=True)
+        with span("workers.stop"):
+            for pool in set(self.pools):
+                pool.shutdown(wait=True)
 
     def submit(self, k: int, fn, *args):
-        return self.pools[k].submit(self._run, k, fn, *args)
+        return self.pools[k].submit(contextvars.copy_context().run,
+                                    self._run, k, fn, *args)
 
     def _run(self, k: int, fn, *args):
         dev = self.mesh[k]
         if dev.type != "cuda":
             return fn(dev, *args)
-        torch.cuda.set_device(dev)
-        if self.streams[k] is None:
-            self.streams[k] = torch.cuda.Stream(dev)
+        with span("workers.start"):
+            torch.cuda.set_device(dev)
+            if self.streams[k] is None:
+                self.streams[k] = torch.cuda.Stream(dev)
         with torch.cuda.stream(self.streams[k]):
             return fn(dev, *args)
 
@@ -264,31 +271,37 @@ def decode_archive_to(inp, out, mesh=None, progress=None):
         while True:
             window = []
             limit = None
-            while limit is None or len(window) < limit:
-                rec = framing.read_block(inp)
-                if rec is None:
-                    break
-                h = rec[0]
-                if first is None:
-                    first = h
-                elif (h.units, h.lanes) != (first.units, first.lanes):
-                    raise ValueError("mixed stream parameters in one archive")
-                window.append(rec)
-                if limit is None:
-                    limit = _mesh_batch(mesh, h.blocksize) * len(mesh)
+            with span("archive.read"):
+                while limit is None or len(window) < limit:
+                    rec = framing.read_block(inp)
+                    if rec is None:
+                        break
+                    h = rec[0]
+                    if first is None:
+                        first = h
+                    elif (h.units, h.lanes) != (first.units, first.lanes):
+                        raise ValueError(
+                            "mixed stream parameters in one archive")
+                    window.append(rec)
+                    if limit is None:
+                        limit = _mesh_batch(mesh, h.blocksize) * len(mesh)
             if not window:
                 break
-            runs = _runs(window, len(mesh))
-            futures = [workers.submit(k, _decode_run, run, index + start)
-                       for k, (start, run) in enumerate(runs)]
-            for future, (_, run) in zip(futures, runs):
-                for data, (h, _) in zip(future.result(), run):
-                    out.write(data.tobytes())
-                    raw += data.size
-                    comp += h.csize + framing.header_size(h.units, h.lanes,
-                                                          h.lpx_spans)
-                    if progress is not None:
-                        progress(raw, comp)
+            with span("archive.window", blocks=len(window)):
+                runs = _runs(window, len(mesh))
+                futures = [workers.submit(k, _decode_run, run, index + start)
+                           for k, (start, run) in enumerate(runs)]
+                for future, (_, run) in zip(futures, runs):
+                    with span("archive.wait"):
+                        done = future.result()
+                    for data, (h, _) in zip(done, run):
+                        with span("archive.write", bytes=data.size):
+                            out.write(data.tobytes())
+                            raw += data.size
+                            comp += h.csize + framing.header_size(
+                                h.units, h.lanes, h.lpx_spans)
+                            if progress is not None:
+                                progress(raw, comp)
             index += len(window)
     return raw, comp
 
@@ -345,26 +358,35 @@ def encode_archive_sharded(inp, out, opt, mesh=None, engine=None,
     with _Workers(mesh) as workers:
         while not eof:
             window = []
-            while len(window) < per * len(mesh):
-                blob = inp.read(opt.blocksize)
-                if len(blob) == 0:
-                    if pending_empty:
-                        window.append(np.zeros(0, np.uint8))
-                    eof = True
-                    break
-                window.append(np.frombuffer(blob, dtype=np.uint8))
-                pending_empty = len(blob) == opt.blocksize
-            runs = _runs(window, len(mesh)) if window else []
-            futures = [workers.submit(k, _encode_run, run, opt)
-                       for k, (_, run) in enumerate(runs)]
-            for future, (_, run) in zip(futures, runs):
-                for (crc, payload, spans), block in zip(future.result(), run):
-                    framing.write_block(out, crc, payload, opt.blocksize,
-                                        opt.anchor_units, opt.rans_lanes,
-                                        spans)
-                    raw += block.size
-                    comp += len(payload) + framing.header_size(
-                        opt.anchor_units, opt.rans_lanes, spans)
-                    if progress is not None:
-                        progress(raw, comp)
+            with span("archive.read"):
+                while len(window) < per * len(mesh):
+                    blob = inp.read(opt.blocksize)
+                    if len(blob) == 0:
+                        if pending_empty:
+                            window.append(np.zeros(0, np.uint8))
+                        eof = True
+                        break
+                    window.append(np.frombuffer(blob, dtype=np.uint8))
+                    pending_empty = len(blob) == opt.blocksize
+            if not window:
+                break
+            with span("archive.window", blocks=len(window)):
+                runs = _runs(window, len(mesh))
+                futures = [workers.submit(k, _encode_run, run, opt)
+                           for k, (_, run) in enumerate(runs)]
+                for future, (_, run) in zip(futures, runs):
+                    with span("archive.wait"):
+                        done = future.result()
+                    for (crc, payload, spans), block in zip(done, run):
+                        size = len(payload) + framing.header_size(
+                            opt.anchor_units, opt.rans_lanes, spans)
+                        with span("archive.write", bytes=size):
+                            framing.write_block(out, crc, payload,
+                                                opt.blocksize,
+                                                opt.anchor_units,
+                                                opt.rans_lanes, spans)
+                            raw += block.size
+                            comp += size
+                            if progress is not None:
+                                progress(raw, comp)
     return raw, comp

@@ -122,7 +122,7 @@ def test_stage_copies_equal_their_originals(name):
     (pipeline, jpipeline, ["Engine", "compress_block_ex", "compress_block",
                            "decompress_block", "compress_stream",
                            "decompress_stream"]),
-    (metrics, jmetrics, ["StageMetrics", "InstrumentedEngine"]),
+    (metrics, jmetrics, ["InstrumentedEngine"]),
     (engines, jengines, ["NativeEngine"]),
     (sysinfo, jsysinfo, ["core_count", "available_memory"]),
     (distributed, jdistributed, ["owner", "decompress_stream_part",
@@ -132,7 +132,9 @@ def test_stage_copies_equal_their_originals(name):
 def test_copied_runtime_code_equals_its_original(port, ref, names):
     """Line for line.  Where a copy must differ it is held by behaviour
     instead: pipeline's gate calls the integer comparison that the device
-    encode shares (test_copied_functions_agree); distributed's initialize
+    encode shares (test_copied_functions_agree); StageMetrics.stage also
+    records a span (test_stage_metrics_report_as_the_original);
+    distributed's initialize
     meets over torch.distributed (tests/test_torch_distributed.py);
     sysinfo's device half
     asks PyTorch and raises without a card (tests/test_torch_engines_
@@ -141,6 +143,27 @@ def test_copied_runtime_code_equals_its_original(port, ref, names):
     for name in names:
         assert inspect.getsource(getattr(port, name)) == inspect.getsource(
             getattr(ref, name)), name
+
+
+def test_stage_metrics_report_as_the_original():
+    """The port's StageMetrics is its original line for line but for
+    stage, which also records a span: the same calls give the same
+    report, seconds apart."""
+    port, ref = metrics.StageMetrics, jmetrics.StageMetrics
+    for name in ("__init__", "summary", "report", "to_json"):
+        assert inspect.getsource(getattr(port, name)) == inspect.getsource(
+            getattr(ref, name)), name
+    got = []
+    for cls in (port, ref):
+        stats = cls()
+        for name, nbytes in (("bwt_forward", 10**6), ("ans_encode", 3000),
+                             ("bwt_forward", 5 * 10**6)):
+            with stats.stage(name, nbytes):
+                pass
+        got.append({k: (v["MB"], v["calls"])
+                    for k, v in stats.summary().items()})
+    assert got[0] == got[1] == {"ans_encode": (0.003, 1),
+                                "bwt_forward": (6.0, 2)}
 
 
 def test_native_loader_opens_nothing_of_jampack_tpu():
