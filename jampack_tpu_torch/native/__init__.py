@@ -130,7 +130,13 @@ def _as_u8(data) -> np.ndarray:
 
 
 def checksum(data) -> int:
-    a = _as_u8(data)
+    """format/checksum.integrity_check in C++: the block checksum of the
+    bytes of any bytes-like object or array, read in place where they are
+    contiguous.  The fused paths' block CRC."""
+    if isinstance(data, np.ndarray):
+        a = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+    else:
+        a = np.frombuffer(memoryview(data), np.uint8)
     return int(load().jam_checksum(a, a.size))
 
 

@@ -5,7 +5,8 @@ block_meta below, the port's copy of jampack_tpu/runtime/device_decode.py's);
 every O(n) stage runs on the device (kernels/device_stages.
 decode_blocks_core), over a batch of blocks where the caller gives one.
 The CRC is checked on the host after the fetch, as the reference checks
-after its chain (jampack.cpp:56-57).
+after its chain (jampack.cpp:56-57), by the native engine's C++ checksum
+(native.checksum, equal to format/checksum.integrity_check).
 
 There is no fallback: a corrupt block raises ValueError, and asking for
 CUDA without a card raises RuntimeError.
@@ -15,9 +16,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
 from ..kernels.device_stages import decode_blocks_core
+from ..native import checksum as integrity_check
 from ..stages.ans import lane_rlen, read_chunk_header, read_lane_table
 from .metrics import Marks, span
 
@@ -181,7 +182,7 @@ def decode_blocks_device(payloads, crcs, blocksize: int, units: int = 120,
                 mark("fetch", "d2h", bytes=data.size)
                 if integrity_check(data) != (crcs[i] & 0xFFFFFFFF):
                     raise ValueError(f"detected corrupt block {idx_map[i]}")
-                mark("crc", "host_crc")
+                mark("crc", "host_crc", bytes=data.size)
                 results[i] = data
     return results
 

@@ -2,7 +2,8 @@
 
 The encode mirror of device_decode.py.  The filters, Lpx, the forward BWT
 and the entropy stage run on the device (kernels/encode_stages.py); the
-host computes the CRC (the shared format.checksum, as decode checks it),
+host computes the CRC (native.checksum, the C++ twin of
+format/checksum.integrity_check, as decode checks it),
 runs the LZ match finders of -m0/-m1/-m2 (serial hash-chain walks, as in
 the JAX package's encode_block_device_lz; in the store configuration -m3
 both LZ stages are a framing the device writes) and splices format
@@ -25,9 +26,9 @@ and asking for CUDA without a card raises RuntimeError.
 import numpy as np
 import torch
 
-from ..format.checksum import integrity_check
 from ..format.constants import ANS_CHUNK_SIZE
 from ..format.varint import encode_leb128
+from ..native import checksum as integrity_check
 from ..stages.ans import write_chunk_header
 from .engines import NativeEngine
 from .options import LZ_MODE_STORE, Options, validate_match_finder
@@ -101,7 +102,7 @@ def encode_block_device_ex(data: np.ndarray, opt: Options, device="cuda",
     with span("block.batch", blocks=1):
         mark = Marks(dev, times)
         crc = integrity_check(data)
-        mark("host_crc")
+        mark("host_crc", bytes=data.size)
         s1 = NativeEngine().lz_encode(data, 0)
         mark("lz_pre")
         s1 = _h2d(s1, dev)
@@ -158,7 +159,7 @@ def encode_blocks_device(blocks, opt: Options, device="cuda",
     with span("block.batch", blocks=len(blocks)):
         mark = Marks(dev, times)
         crcs = [integrity_check(b) for b in blocks]
-        mark("host_crc")
+        mark("host_crc", bytes=sum(b.size for b in blocks))
         tok = torch.as_tensor(END_TOKEN, device=dev)
         flat = _h2d(np.concatenate(blocks), dev)
         n = blocks[0].size

@@ -123,6 +123,37 @@ def test_decode_blocks_corrupt_names_callers_block(spans, bad):
         dd.decode_blocks_device(payloads, crcs, 1 << 20, 16, 4, spans, "cpu")
 
 
+@pytest.mark.parametrize("spans,bad", [(8, 2), ([8, 0, 8], 0)])
+def test_decode_blocks_wrong_crc_names_callers_block(monkeypatch, spans, bad):
+    """A stored CRC off by one raises "detected corrupt block i" with the
+    caller's index.  The check goes through the module's integrity_check
+    (the benchmark's crc.* wraps that name), once a block: every block of
+    a clean batch, and every block up to the bad one."""
+    words = [spans] * 3 if np.ndim(spans) == 0 else spans
+    blocks, crcs, payloads = _framed(words, [6000] * 3)
+    checked = []
+    real = dd.integrity_check
+
+    def spy(data):
+        checked.append(bytes(data))
+        return real(data)
+
+    monkeypatch.setattr(dd, "integrity_check", spy)
+    with one_thread():
+        outs = dd.decode_blocks_device(payloads, crcs, 1 << 20, 16, 4, spans,
+                                       "cpu")
+        assert sorted(checked) == sorted(b.tobytes() for b in blocks)
+        assert all(np.array_equal(o, b) for o, b in zip(outs, blocks))
+        checked.clear()
+        crcs[bad] = (crcs[bad] + 1) & 0xFFFFFFFF
+        with pytest.raises(ValueError,
+                           match=f"^detected corrupt block {bad}$"):
+            dd.decode_blocks_device(payloads, crcs, 1 << 20, 16, 4, spans,
+                                    "cpu")
+    assert checked[-1] == blocks[bad].tobytes()
+    assert len(checked) == len(set(checked))
+
+
 def test_decode_blocks_core_equals_block_core():
     """decode_block_core is decode_blocks_core on one block: the batch
     gives each block what its batch of one gives."""

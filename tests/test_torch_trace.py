@@ -118,6 +118,7 @@ def test_one_op_a_call_into_the_worker(archive, tmp_path, label):
     assert len(named["block.crc"]) == 4 and len(named["block.fetch"]) == 4
     assert sum(r.counts["bytes"] for r in named["archive.write"]) == len(data)
     assert sum(r.counts["bytes"] for r in named["block.fetch"]) == len(data)
+    assert sum(r.counts["bytes"] for r in named["block.crc"]) == len(data)
     for name in ("cli.setup", "cli.open", "cli.close", "archive.read",
                  "block.meta", "block.plan", "block.upload", "block.chain",
                  "chain.rans", "chain.status", "sync.status"):
@@ -138,7 +139,11 @@ def test_marks_keep_the_times_keys():
     assert got[0].tobytes() == data.tobytes()
     assert sorted(enc) == ENCODE_KEYS and sorted(dec) == DECODE_KEYS
     assert all(v >= 0 for v in (*enc.values(), *dec.values()))
-    names = {r.name for r in _since(t0)}
+    recs = _since(t0)
+    names = {r.name for r in recs}
+    for crc_mark in ("block.host_crc", "block.crc"):
+        assert [r.counts["bytes"] for r in recs
+                if r.name == crc_mark] == [data.size]
     for key in ("host_crc", "lz_pre", "h2d", "search", "d2h_s2", "lz",
                 "h2d_s3", "d2h", "splice", "meta", "plan", "upload", "chain",
                 "fetch", "crc"):
