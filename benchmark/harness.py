@@ -9,8 +9,11 @@ back, one caller, each one jampack_tpu_torch.cli.run with the
 configuration's flags on the cell's cards (--device), until the seconds
 have passed; the op that is running then finishes inside the window.
 Every byte each op gives back is compared with the seeded input
-(reference/compare.py).  A traced run puts the window under torch.profiler
-(trace.py) and spans around the program's layers (spans.py).
+(reference/compare.py).  Once the window has closed and the card's peak
+memory has been read, the checks the op's set-up left in `ctx.after` run
+(a backup's plain decode and restore of its archive), outside set-up and
+the window.  A traced run puts the window under torch.profiler (trace.py)
+and spans around the program's layers (spans.py).
 """
 
 import contextlib
@@ -28,6 +31,7 @@ import torch
 from jampack_tpu_torch import cli
 
 from . import registry, trace
+from .metrics import _program
 from .reference.compare import Sink
 from .spans import OP, Spans
 
@@ -37,10 +41,12 @@ PROGRAM = "jampack_tpu_torch.cli"
 @dataclass
 class Job:
     """One op: cli <mode> <source> <the sink>; `answer` is what it must
-    give back."""
+    give back; `archive`, where the op writes one, the file that holds its
+    answer."""
     mode: str
     source: str
     answer: np.ndarray
+    archive: str = None
 
 
 @dataclass
@@ -51,6 +57,7 @@ class Record:
     ok: bool  # cli.run returned 0
     wrong: int  # bytes given back wrong, missing or extra
     source: str
+    archive: str = None  # the job's
 
 
 @dataclass
@@ -96,6 +103,9 @@ class Context:
         self.work, self.device = work, device
         self.sink = Sink(os.path.join(work, "out.fifo"))
         self.stored = self.raw = 0
+        # checks to run once the window has closed: each () -> {name:
+        # [value, limit]}, the value at most the limit where it holds
+        self.after = []
 
     def rng(self, *key) -> np.random.Generator:
         """A generator of the seed and `key` (strings or ints)."""
@@ -153,7 +163,7 @@ class Context:
         ok = self.cli(job.mode, job.source, self.sink.path)
         end = time.perf_counter()
         return Record(start, end, job.answer.size, ok,
-                      self.sink.result(opened=ok), job.source)
+                      self.sink.result(opened=ok), job.source, job.archive)
 
     def warm(self, job: Job) -> None:
         rec = self.do(job)
@@ -163,7 +173,7 @@ class Context:
 
 
 def checks(records: list) -> dict:
-    """Each number compared, with its limit: a restore is exact."""
+    """Each number compared, with its limit: an op's answer is exact."""
     return {
         "ops_failed": [sum(not r.ok for r in records), 0],
         "ops_wrong": [sum(bool(r.wrong) for r in records), 0],
@@ -241,11 +251,18 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
             setup_s = time.perf_counter() - start
             with spans.installed(targets):
                 records, found = _window(ctx, jobs, seconds, spans, traced)
+            result = {"correct": None, "attempted": len(records),
+                      "failed": sum(not r.ok for r in records),
+                      "metrics": {},
+                      "device": _device_record(cards, cell["chips"])}
+            print(f"window: {len(records)} op(s) of "
+                  f"{[round(r.end - r.start, 3) for r in records]} s",
+                  file=sys.stderr)
+            compared = checks(records)
+            for check in ctx.after:
+                compared.update(check())
         finally:
             ctx.sink.close()
-        result = {"correct": None, "attempted": len(records),
-                  "failed": sum(not r.ok for r in records), "metrics": {},
-                  "device": _device_record(cards, cell["chips"])}
         run = Run(records, setup_s, ctx.stored, ctx.raw, spans, found)
         for m in wanted:
             value = readers[m["name"]].read(run, m)
@@ -256,10 +273,19 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
         lo, hi = run.window
         result["device"].update(busy_s=found.busy(lo, hi), window_s=hi - lo)
         if found.ops:
+            program_spans(run)
             result["breakdown"] = {
                 "device_ops": found.top_ops(),
                 "idle_gaps": trace.idle_gaps(found, spans, lo, hi)}
-    compared = checks(records)
     result["correct"] = all(v <= lim for v, lim in compared.values())
     result["checks"] = compared
     return result
+
+
+def program_spans(run: Run) -> None:
+    """Hand the program's own spans of the window's ops to the run's host
+    spans, so that each idle gap of the breakdown is named by the
+    innermost span open at its middle, the program's included."""
+    run.spans.records.extend((r.name, r.thread, r.start, r.end)
+                             for _, recs in _program.ops(run) or ()
+                             for r in recs)

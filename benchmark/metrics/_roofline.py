@@ -92,3 +92,15 @@ def k1_work(archive: bytes):
 def least_seconds(moved: int, ops: int, kind: str) -> float:
     peak = PEAKS[kind]
     return max(moved / peak["bytes_per_s"], ops / peak["int32_ops_per_s"])
+
+
+def k4_work(archive: bytes):
+    """(bytes, int32 ops) that K4, the encode's model pass, needs for the
+    archive: each chain's RLE0 symbols read once at the format's 16 bits,
+    its length read (4 bytes) and its ok flag written (1), each symbol's
+    exponent and mantissa ops written as a 16-bit low and a 16-bit
+    frequency each (8 bytes); 50 ops a symbol (chip_smoke's count: the
+    exponent's ballot, two pairs from the model bank, the bank's
+    update)."""
+    c = chains(archive)
+    return 10 * c["symbols"] + 5 * c["chains"], 50 * c["symbols"]

@@ -2,6 +2,9 @@
 wrong: the control (the reference in the program's place, with the
 guarantee that every byte comes back broken) and faults planted in the
 program's timed path.  Each drives a whole run but the look for a card.
+They are a restore's, so they run in the cells whose ops give raw bytes
+back (the restore and objects op kinds); a backup's control and faults
+are test_control_backup.py's.
 
 On the CPU at small sizes; marked gpu, at the cells' own sizes on the
 card (the control on three seeds, each fault on one):
@@ -15,7 +18,8 @@ import pytest
 
 from benchmark import harness, registry
 
-CELLS = [w["name"] for w in registry.benchmark()["workloads"]]
+CELLS = [w["name"] for w in registry.benchmark()["workloads"]
+         if registry.traffic(w["traffic"])["op"] in ("restore", "objects")]
 SEEDS = [2718281829, 3000000019, 1414213563]
 
 

@@ -90,7 +90,7 @@ def test_unspanned_share(recorded):
 
 def test_gaps_named_by_program_spans(recorded):
     run = built()
-    read("unspanned.objects", run)
+    harness.program_spans(run)
     lo, hi = run.window
     named = trace.idle_gaps(run.device, run.spans, lo, hi)
     assert [n for n, _ in named] == ["block.crc", "archive.write", "op"]
@@ -100,7 +100,7 @@ def test_gaps_named_by_program_spans(recorded):
 def test_nothing_to_read(recorded, monkeypatch):
     names = [n for n in METRICS if n.split(".")[0] in (
         "wait", "copies", "io", "first_byte", "launches", "unspanned")]
-    assert len(names) == 11
+    assert len(names) == 14
     cpu = built(device=False)
     assert all(read(n, cpu) is None for n in names)
     # a program without the recorder, as the parent of the recorder is

@@ -6,7 +6,7 @@ import json
 import numpy as np
 import pytest
 
-from benchmark import registry
+from benchmark import harness, registry
 
 BENCH = registry.benchmark()
 
@@ -32,9 +32,19 @@ def test_cell_metrics_by_trace():
                                                False)]
     layer = [m["name"] for m in registry.metrics(BENCH, "jt3-prod.objects",
                                                  True)]
-    assert "object_read_p95_ms" in e2e and "restore_mbps" not in e2e
-    assert "setup_s" in e2e and "stored_pct" in e2e
+    assert e2e == ["stored_pct", "setup_s"]
+    assert "read_p95_ms.objects" in layer
     assert "archive_self.objects" in layer and "crc.restore" not in layer
+
+
+def test_read_tail_per_layer():
+    """The per-layer read tail is the nearest-rank 95th percentile of every
+    read, as the end-to-end reader takes it."""
+    recs = [harness.Record(0.0, ms / 1e3, 1, True, 0, "x")
+            for ms in range(100, 0, -1)]
+    run = harness.Run(recs, 0.0, 0, 0, None, None)
+    for name in ("read_p95_ms.objects", "object_read_p95_ms"):
+        assert registry.reader(name).read(run, {}) == pytest.approx(95.0)
 
 
 def test_per_layer_cells_report_what_they_move():

@@ -75,3 +75,11 @@ def test_k1_work_and_least_time():
         1e-9, rel=1e-4)
     assert _roofline.least_seconds(3350, 167_270, kind) == pytest.approx(
         1e-8, rel=1e-4)
+
+
+def test_k4_work():
+    blob, _ = archive(0, 1 << 20, 120, 4)
+    c = _roofline.chains(blob)
+    moved, ops = _roofline.k4_work(blob)
+    assert moved == 10 * c["symbols"] + 5 * c["chains"]
+    assert ops == 50 * c["symbols"]
